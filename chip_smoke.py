@@ -209,6 +209,19 @@ def phase_kernels():
     ur, Jr = cuda_flow_jac.flow_u_jac_cuda(flow, x[:BATCH - 1])
     check(ur.shape[0] == BATCH - 1 and torch.equal(ur, u[:-1]) and torch.equal(Jr, J[:-1]),
           "flow_u_jac: ragged batch differs from the full batch")
+    # widths other than the production ones run the kernel's instantiation
+    # with run-time widths: other depths, dim 3, uneven widths
+    for depth, dim, S, T, n in [(3, 2, 8, 12, 13), (1, 3, 3, 5, 6), (2, 3, 16, 16, 9)]:
+        Lg = float(n) ** (1 / dim)
+        fg = init_ferminet_params(FermiNetConfig(depth, S, T, Lg, 0.2), dim,
+                                  torch.Generator().manual_seed(depth), torch.float32, DEV)
+        xg = Lg * torch.rand(65, n, dim, device=DEV, generator=torch.Generator(DEV).manual_seed(n))
+        ug, Jg = cuda_flow_jac.flow_u_jac_cuda(fg, xg)
+        with torch.no_grad():
+            ug_p, Jg_p = cuda_flow_jac.flow_u_jac_plain(fg, xg)
+        check(max_err(ug, ug_p) <= TOL_U and max_err(Jg, Jg_p) <= TOL_UJ,
+              "flow_u_jac (depth %d, dim %d, widths %d/%d) vs plain: u %g J %g" % (
+                  depth, dim, S, T, max_err(ug, ug_p), max_err(Jg, Jg_p)))
     with torch.no_grad():
         ms = time_ms(lambda: cuda_flow_jac.flow_u_jac_cuda(flow, x), 20)
         plain_ms = time_ms(lambda: cuda_flow_jac.flow_u_jac_plain(flow, x), 5)
@@ -348,10 +361,14 @@ def phase_train():
     expect = 51 * (mc_therm + epochs)
     check(counts["flow_u_jac"] == expect and counts["fused_logp"] == expect,
           "launch counters %s, expected %d for flow_u_jac and fused_logp" % (counts, expect))
+    # accumulate takes the value of log det(J J^T) from the chol_logdet kernel:
+    # once for the Hutchinson term and once for log Psi, every epoch
+    check(counts["chol_logdet"] == 2 * epochs,
+          "chol_logdet launches %d on the main path, expected %d" % (counts["chol_logdet"], 2 * epochs))
     check(run["params_changed"], "parameters did not change")
 
     # One sample step on the route without the fused tail: the stacked Grams
-    # go through the chol_logdet kernel.
+    # of all 51 logp evaluations go through the chol_logdet kernel.
     trainer = run["trainer"]
     logp3 = make_logp_fast(trainer.sp_indices, trainer.L, use_fused=False, use_flow_kernel=False)
     sample3 = main_torch.make_sample_step(
@@ -359,8 +376,8 @@ def phase_train():
     before = cuda_logdet.launches
     x0 = trainer.x.clone()
     si, x3, acc3 = sample3(trainer.van, trainer.flow, trainer.x, trainer.generator)
-    counts["chol_logdet"] = cuda_logdet.launches - before
-    check(counts["chol_logdet"] == 51, "chol_logdet launches %d, expected 51" % counts["chol_logdet"])
+    route3 = cuda_logdet.launches - before
+    check(route3 == 51, "chol_logdet launches %d on the unfused route, expected 51" % route3)
     lp_fused = trainer.logp(x3, trainer.flow, si)
     lp_chol = logp3(x3, trainer.flow, si)
     err = max_err(lp_fused, lp_chol)
@@ -368,7 +385,8 @@ def phase_train():
           "logp of the chol_logdet route differs from the fused route by %g" % err)
     check(bool(torch.isfinite(x3).all()) and x3.shape == x0.shape, "walkers of the third route")
     emit({"phase": "train", "route": "chol_logdet", "accept_rate": float(acc3),
-          "logp_max_abs_diff_vs_fused": err, "launches": counts})
+          "logp_max_abs_diff_vs_fused": err, "launches_on_this_route": route3,
+          "launches_main_path": counts})
     return counts
 
 

@@ -9,6 +9,10 @@
 // Otherwise log d is added and the trailing block gets the rank-1 update
 // A[r][c] -= A[r][k] A[c][k] / d.
 //
+// Only the lower triangle (row >= column) is read and updated: step k reads
+// column k below the diagonal, and nothing later reads above it.  So a caller
+// needs to fill the lower triangle only.
+//
 // Every thread of the block must call these functions; each returns the
 // log-determinant in every thread.  The matrix is destroyed.
 #pragma once
@@ -20,9 +24,24 @@
 // down a column touches distinct banks.
 __host__ __device__ inline int cg_ld(int m) { return m | 1; }
 
+// The threads of a block as a TX x TY grid over (column, row) of the trailing
+// block, so that the update needs no division: 16 x 16 for the 256 threads the
+// launchers use.  Threads beyond TX * TY (a block size that is no multiple of
+// 16) take no part.
+struct CgGrid {
+  int tx, ty, TX, TY;
+  __device__ CgGrid() {
+    TX = blockDim.x >= 16 ? 16 : 1;
+    TY = blockDim.x / TX;
+    tx = threadIdx.x % TX;
+    ty = threadIdx.x / TX;
+  }
+};
+
 // Real symmetric positive definite, m x m, row stride ld.
 __device__ inline float cg_chol_logdet_real(float* A, int m, int ld) {
   const float log_floor = logf(CG_PIVOT_FLOOR);
+  const CgGrid g;
   float acc = 0.f;
   for (int k = 0; k < m; ++k) {
     __syncthreads();  // the previous step's update is complete
@@ -30,13 +49,12 @@ __device__ inline float cg_chol_logdet_real(float* A, int m, int ld) {
     const bool bad = d < CG_PIVOT_FLOOR;
     const float d_use = bad ? 1.f : d;
     acc += bad ? log_floor : logf(d_use);
-    if (!bad) {  // uniform over the block: every thread read the same d
+    if (!bad && g.ty < g.TY) {  // `bad` is uniform: every thread read the same d
       const float inv = 1.f / d_use;
-      const int w = m - k - 1;
-      // Column k and row k are read only; the writes go to rows/cols > k.
-      for (int idx = threadIdx.x; idx < w * w; idx += blockDim.x) {
-        const int r = k + 1 + idx / w, c = k + 1 + idx % w;
-        A[r * ld + c] -= A[r * ld + k] * A[c * ld + k] * inv;
+      // Column k is read only; the writes go to rows > k, columns k < c <= r.
+      for (int r = k + 1 + g.ty; r < m; r += g.TY) {
+        const float ark = A[r * ld + k] * inv;
+        for (int c = k + 1 + g.tx; c <= r; c += g.TX) A[r * ld + c] -= ark * A[c * ld + k];
       }
     }
   }
@@ -47,6 +65,7 @@ __device__ inline float cg_chol_logdet_real(float* A, int m, int ld) {
 // Update: H[r][c] -= H[r][k] conj(H[c][k]) / d.
 __device__ inline float cg_chol_logdet_herm(float* Hr, float* Hi, int n, int ld) {
   const float log_floor = logf(CG_PIVOT_FLOOR);
+  const CgGrid g;
   float acc = 0.f;
   for (int k = 0; k < n; ++k) {
     __syncthreads();
@@ -54,15 +73,15 @@ __device__ inline float cg_chol_logdet_herm(float* Hr, float* Hi, int n, int ld)
     const bool bad = d < CG_PIVOT_FLOOR;
     const float d_use = bad ? 1.f : d;
     acc += bad ? log_floor : logf(d_use);
-    if (!bad) {
+    if (!bad && g.ty < g.TY) {
       const float inv = 1.f / d_use;
-      const int w = n - k - 1;
-      for (int idx = threadIdx.x; idx < w * w; idx += blockDim.x) {
-        const int r = k + 1 + idx / w, c = k + 1 + idx % w;
-        const float ar = Hr[r * ld + k], ai = Hi[r * ld + k];
-        const float br = Hr[c * ld + k], bi = Hi[c * ld + k];
-        Hr[r * ld + c] -= (ar * br + ai * bi) * inv;
-        Hi[r * ld + c] -= (ai * br - ar * bi) * inv;
+      for (int r = k + 1 + g.ty; r < n; r += g.TY) {
+        const float ar = Hr[r * ld + k] * inv, ai = Hi[r * ld + k] * inv;
+        for (int c = k + 1 + g.tx; c <= r; c += g.TX) {
+          const float br = Hr[c * ld + k], bi = Hi[c * ld + k];
+          Hr[r * ld + c] -= ar * br + ai * bi;
+          Hi[r * ld + c] -= ai * br - ar * bi;
+        }
       }
     }
   }

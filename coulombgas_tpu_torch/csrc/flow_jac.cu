@@ -30,13 +30,17 @@
 //   cg_flow_fwd_kernel   one block per walker: the forward pass.  Writes u and
 //                        sigmoid(pre[k][i][s]) for every sp layer k (a scratch
 //                        of depth*n*S floats per walker, allocated by the
-//                        wrapper).  Each thread owns a row i and walks its n
-//                        pair streams sequentially, so the pair means are
-//                        summed in a fixed order: results are deterministic.
+//                        wrapper).  A few threads share a row i and walk its
+//                        pair streams; their partial sums are added in a
+//                        fixed order, so results are deterministic.
 //   cg_flow_jac_kernel   one block per (walker, l): carries Jsp[:, l] —
 //                        n*dim*S floats, 3.7 KB at n = 29 — through the
 //                        layers in shared memory and writes column block l
-//                        of J.  About 25 KB of shared memory per block.
+//                        of J.  About 27 KB of shared memory per block.  At
+//                        the production widths each thread owns a register
+//                        tile (dim rows x 8 features) and reads weights as
+//                        float4, so a shared-memory load feeds several
+//                        multiply-adds and no index needs a division.
 //
 // Nothing but x, the weights, the scratch, u and J touches device memory.
 // The n ceiling is the shared-memory budget of cg_flow_jac_kernel (see
@@ -114,10 +118,15 @@ __device__ inline void cg_pair_feat(const float* xs, int i, int j, int dim,
 }
 
 // ---- forward pass: one block per walker -------------------------------------
+// Row i's n pair streams are shared by CG_FWD_SLICES threads (pairs j = slice,
+// slice + CG_FWD_SLICES, ...); each keeps its partial sums apart, and they are
+// added in slice order afterwards, so the means do not depend on timing.
+#define CG_FWD_SLICES 4
+
 __host__ __device__ inline int cg_flow_fwd_floats(int n, int dim, int depth, int S, int T) {
   const int CW = cg_imax(2 * dim + 1, T), SW = cg_imax(S, dim);
-  return cg_param_count(depth, dim, S, T) + n * dim + depth * n * CW +
-         2 * n * SW + SW;
+  return cg_param_count(depth, dim, S, T) + n * dim +
+         (CG_FWD_SLICES + 1) * depth * n * CW + 2 * n * SW + SW;
 }
 
 __global__ void cg_flow_fwd_kernel(const float* __restrict__ x,
@@ -125,13 +134,14 @@ __global__ void cg_flow_fwd_kernel(const float* __restrict__ x,
                                    float* __restrict__ u, float* __restrict__ sig,
                                    int n, int dim, int depth, int S, int T,
                                    float L) {
-  extern __shared__ float cg_smem[];
+  extern __shared__ __align__(16) float cg_smem[];
   const int C0 = 2 * dim + 1, CW = cg_imax(C0, T), SW = cg_imax(S, dim);
   const int P = cg_param_count(depth, dim, S, T);
   float* Pm = cg_smem;              // packed weights
   float* xs = Pm + P;               // n x dim
   float* tpm = xs + n * dim;        // depth x n x CW   mean_j tp_k[i][j][:]
-  float* spA = tpm + depth * n * CW;  // n x SW
+  float* part = tpm + depth * n * CW;  // slices x depth x n x CW partial sums
+  float* spA = part + CG_FWD_SLICES * depth * n * CW;  // n x SW
   float* spB = spA + n * SW;        // n x SW
   float* spmean = spB + n * SW;     // SW
   const size_t w = blockIdx.x;
@@ -141,20 +151,21 @@ __global__ void cg_flow_fwd_kernel(const float* __restrict__ x,
   for (int idx = tid; idx < P; idx += nt) Pm[idx] = params[idx];
   for (int idx = tid; idx < n * dim; idx += nt) xs[idx] = x[w * n * dim + idx];
   for (int idx = tid; idx < n * SW; idx += nt) spA[idx] = 0.f;
+  for (int idx = tid; idx < CG_FWD_SLICES * depth * n * CW; idx += nt) part[idx] = 0.f;
   __syncthreads();
 
   // Pair streams.  tp_k[i][j] depends on the pair (i, j) alone, through every
-  // layer, so a thread walks row i's pairs one after the other and keeps the
+  // layer, so a thread walks its pairs one after the other and keeps the
   // stream in its own registers/local memory.
-  for (int i = tid; i < n; i += nt) {
-    for (int k = 0; k < depth; ++k)
-      for (int c = 0; c < CW; ++c) tpm[(k * n + i) * CW + c] = 0.f;
-    for (int j = 0; j < n; ++j) {
+  for (int slot = tid; slot < n * CG_FWD_SLICES; slot += nt) {
+    const int i = slot / CG_FWD_SLICES, sl = slot % CG_FWD_SLICES;
+    float* mine = part + sl * depth * n * CW;
+    for (int j = sl; j < n; j += CG_FWD_SLICES) {
       float t[CG_MAXF], tn[CG_MAXF];
       cg_pair_feat(xs, i, j, dim, k1, k2, t, nullptr, 0);
       int Cin = C0;
       for (int k = 0; k < depth; ++k) {
-        for (int c = 0; c < Cin; ++c) tpm[(k * n + i) * CW + c] += t[c];
+        for (int c = 0; c < Cin; ++c) mine[(k * n + i) * CW + c] += t[c];
         if (k < depth - 1) {
           const float* Wt = Pm + cg_tp_w_off(k, depth, dim, S, T);
           const float* bt = Wt + Cin * T;
@@ -168,8 +179,12 @@ __global__ void cg_flow_fwd_kernel(const float* __restrict__ x,
         }
       }
     }
-    for (int k = 0; k < depth; ++k)
-      for (int c = 0; c < CW; ++c) tpm[(k * n + i) * CW + c] /= (float)n;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < depth * n * CW; idx += nt) {
+    float m = 0.f;
+    for (int sl = 0; sl < CG_FWD_SLICES; ++sl) m += part[sl * depth * n * CW + idx];
+    tpm[idx] = m / (float)n;
   }
   __syncthreads();
 
@@ -215,36 +230,70 @@ __global__ void cg_flow_fwd_kernel(const float* __restrict__ x,
 }
 
 // ---- Jacobian column: one block per (walker, l) -----------------------------
+//
+// The kernel is a template over (S, T, dim): with all three given (the
+// production widths 16, 16, 2) a thread owns a register tile of dim rows x 8
+// features, reads the weights as float4 and every loop bound is a constant;
+// with zeros it takes the widths at run time, one feature per thread and
+// tile.  One source, so the two cannot drift apart.
+//
+// Rows of A, tp, Jc and Jn are padded to an odd stride: threads of a warp
+// read one element each of different rows at the same feature index.
+__host__ __device__ inline int cg_odd(int v) { return v | 1; }
+__host__ __device__ inline int cg_up4(int v) { return (v + 3) & ~3; }
+
 __host__ __device__ inline int cg_flow_jac_floats(int n, int dim, int depth, int S, int T) {
-  const int CW = cg_imax(2 * dim + 1, T);
-  return cg_param_count(depth, dim, S, T) + n * dim  // weights, x
-         + 2 * (2 * n * CW)                          // tp, tpn
-         + 2 * (2 * n * dim * CW)                    // A, An
-         + 2 * (n * dim * S)                         // Jc, Jn
-         + dim * CW + 3 * dim * S;                   // sumA, meanJ, sumAW, mJW
+  const int CWP = cg_odd(cg_imax(2 * dim + 1, T)), SP = cg_odd(S);
+  return cg_up4(cg_param_count(depth, dim, S, T))  // weights
+         + 2 * (2 * n * CWP)                       // tp, tpn
+         + 2 * (2 * n * dim * CWP)                 // A, An
+         + 2 * (n * dim * SP)                      // Jc, Jn
+         + n * dim + dim * CWP + 3 * dim * S;      // x, sumA, meanJ, sumAW, mJW
 }
 
+}  // extern "C"
+
+// w[0..W) = p[0..W); as float4 when the width allows (p is then 16-byte aligned)
+template <int W>
+__device__ inline void cg_load_row(const float* p, float* w) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < W; j += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + j);
+      w[j] = v.x; w[j + 1] = v.y; w[j + 2] = v.z; w[j + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < W; ++j) w[j] = p[j];
+  }
+}
+
+template <int S_, int T_, int DIM_>
 __global__ void cg_flow_jac_kernel(const float* __restrict__ x,
                                    const float* __restrict__ params,
                                    const float* __restrict__ sig,
-                                   float* __restrict__ J, int n, int dim,
-                                   int depth, int S, int T, float L) {
-  extern __shared__ float cg_smem[];
-  const int C0 = 2 * dim + 1, CW = cg_imax(C0, T), nd = n * dim;
+                                   float* __restrict__ J, int n, int dim_rt,
+                                   int depth, int S_rt, int T_rt, float L) {
+  extern __shared__ __align__(16) float cg_smem[];
+  const int S = S_ ? S_ : S_rt, T = T_ ? T_ : T_rt, dim = DIM_ ? DIM_ : dim_rt;
+  constexpr int SC = S_ ? 8 : 1;               // features of one sp tile
+  constexpr int TC = T_ ? 8 : 1;               // features of one tp tile
+  constexpr int DM = DIM_ ? DIM_ : CG_MAXDIM;  // rows of a tile
+  const int C0 = 2 * dim + 1, CWP = cg_odd(cg_imax(C0, T)), SP = cg_odd(S), nd = n * dim;
   const int P = cg_param_count(depth, dim, S, T);
-  float* Pm = cg_smem;
-  float* xs = Pm + P;                  // n x dim
+  float* Pm = cg_smem;                  // packed weights, 16-byte aligned
   // pair p < n is (i = p, j = l); pair p >= n is (i = l, j = p - n)
-  float* tp = xs + n * dim;            // 2n x CW
-  float* tpn = tp + 2 * n * CW;        // 2n x CW
-  float* A = tpn + 2 * n * CW;         // 2n x dim x CW   d tp / d x_i
-  float* An = A + 2 * n * dim * CW;    // 2n x dim x CW
-  float* Jc = An + 2 * n * dim * CW;   // n x dim x S     Jsp[i][l][d][s]
-  float* Jn = Jc + n * dim * S;        // n x dim x S
-  float* sumA = Jn + n * dim * S;      // dim x CW        sum_j A[l][j]
-  float* meanJ = sumA + dim * CW;      // dim x S         mean_i Jsp[i][l]
-  float* sumAW = meanJ + dim * S;      // dim x S
-  float* mJW = sumAW + dim * S;        // dim x S
+  float* tp = Pm + cg_up4(P);           // 2n x CWP
+  float* tpn = tp + 2 * n * CWP;        // 2n x CWP
+  float* A = tpn + 2 * n * CWP;         // 2n x dim x CWP   d tp / d x_i
+  float* An = A + 2 * n * dim * CWP;    // 2n x dim x CWP
+  float* Jc = An + 2 * n * dim * CWP;   // n x dim x SP     Jsp[i][l][d][s]
+  float* Jn = Jc + n * dim * SP;        // n x dim x SP
+  float* xs = Jn + n * dim * SP;        // n x dim
+  float* sumA = xs + n * dim;           // dim x CWP        sum_j A[l][j]
+  float* meanJ = sumA + dim * CWP;      // dim x S          mean_i Jsp[i][l]
+  float* sumAW = meanJ + dim * S;       // dim x S
+  float* mJW = sumAW + dim * S;         // dim x S
   const size_t w = blockIdx.x / n;
   const int l = blockIdx.x % n;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -256,7 +305,7 @@ __global__ void cg_flow_jac_kernel(const float* __restrict__ x,
   __syncthreads();
   for (int p = tid; p < 2 * n; p += nt) {
     const int i = (p < n) ? p : l, j = (p < n) ? l : p - n;
-    cg_pair_feat(xs, i, j, dim, k1, k2, tp + p * CW, A + p * dim * CW, CW);
+    cg_pair_feat(xs, i, j, dim, k1, k2, tp + p * CWP, A + p * dim * CWP, CWP);
   }
   __syncthreads();
 
@@ -269,14 +318,14 @@ __global__ void cg_flow_jac_kernel(const float* __restrict__ x,
     for (int idx = tid; idx < dim * Cin; idx += nt) {
       const int d = idx / Cin, c = idx % Cin;
       float s = 0.f;
-      for (int j = 0; j < n; ++j) s += A[((n + j) * dim + d) * CW + c];
-      sumA[d * CW + c] = s;
+      for (int j = 0; j < n; ++j) s += A[((n + j) * dim + d) * CWP + c];
+      sumA[d * CWP + c] = s;
     }
     if (k > 0)
       for (int idx = tid; idx < dim * S; idx += nt) {
         const int d = idx / S, s = idx % S;
         float m = 0.f;
-        for (int i = 0; i < n; ++i) m += Jc[(i * dim + d) * S + s];
+        for (int i = 0; i < n; ++i) m += Jc[(i * dim + d) * SP + s];
         meanJ[idx] = m * inv_n;
       }
     __syncthreads();
@@ -284,50 +333,103 @@ __global__ void cg_flow_jac_kernel(const float* __restrict__ x,
     for (int idx = tid; idx < dim * S; idx += nt) {
       const int d = idx / S, s2 = idx % S;
       float a = 0.f, m = 0.f;
-      for (int c = 0; c < Cin; ++c) a += sumA[d * CW + c] * W3[c * S + s2];
+      for (int c = 0; c < Cin; ++c) a += sumA[d * CWP + c] * W3[c * S + s2];
       if (k > 0)
         for (int s = 0; s < S; ++s) m += meanJ[d * S + s] * W2[s * S + s2];
-      sumAW[idx] = a;
+      sumAW[idx] = a * inv_n;
       mJW[idx] = m;
     }
     __syncthreads();
-    // (c) Jn[i][d][s2] = sigmoid(pre[i][s2]) * JfW[i][l][d][s2]
-    for (int idx = tid; idx < n * dim * S; idx += nt) {
-      const int i = idx / (dim * S), d = (idx / S) % dim, s2 = idx % S;
-      float v = mJW[d * S + s2];
+    // (c) Jn[i][d][s2] = sigmoid(pre[i][s2]) * JfW[i][l][d][s2], where
+    //     JfW = Jsp W1 + mean(Jsp) W2 + (delta_il sum_j A[l][j] - A[i][l]) W3 / n.
+    //     A tile is particle i's dim rows x SC features.
+    const int nchunk = S / SC;
+    for (int item = tid; item < n * nchunk; item += nt) {
+      const int i = item / nchunk, c0 = (item % nchunk) * SC;
+      float acc[DM][SC], wrow[SC];
+#pragma unroll
+      for (int d = 0; d < DM; ++d)
+        if (d < dim)
+#pragma unroll
+          for (int j = 0; j < SC; ++j)
+            acc[d][j] = mJW[d * S + c0 + j] + (i == l ? sumAW[d * S + c0 + j] : 0.f);
       if (k > 0)
-        for (int s = 0; s < S; ++s) v += Jc[(i * dim + d) * S + s] * W1[s * S + s2];
-      float aw = 0.f;
-      for (int c = 0; c < Cin; ++c) aw += A[(i * dim + d) * CW + c] * W3[c * S + s2];
-      v += ((i == l ? sumAW[d * S + s2] : 0.f) - aw) * inv_n;
-      Jn[idx] = sig[((w * depth + k) * n + i) * S + s2] * v;
+        for (int s = 0; s < S; ++s) {
+          cg_load_row<SC>(W1 + s * S + c0, wrow);
+#pragma unroll
+          for (int d = 0; d < DM; ++d)
+            if (d < dim) {
+              const float a = Jc[(i * dim + d) * SP + s];
+#pragma unroll
+              for (int j = 0; j < SC; ++j) acc[d][j] += a * wrow[j];
+            }
+        }
+      for (int c = 0; c < Cin; ++c) {
+        cg_load_row<SC>(W3 + c * S + c0, wrow);
+#pragma unroll
+        for (int d = 0; d < DM; ++d)
+          if (d < dim) {
+            const float a = -inv_n * A[(i * dim + d) * CWP + c];  // pair (i, l)
+#pragma unroll
+            for (int j = 0; j < SC; ++j) acc[d][j] += a * wrow[j];
+          }
+      }
+      const float* sg = sig + ((w * depth + k) * n + i) * S + c0;
+#pragma unroll
+      for (int d = 0; d < DM; ++d)
+        if (d < dim)
+#pragma unroll
+          for (int j = 0; j < SC; ++j) Jn[(i * dim + d) * SP + c0 + j] = sg[j] * acc[d][j];
     }
     __syncthreads();
     // (d) the first layer replaces the carried state, later ones add
-    for (int idx = tid; idx < n * dim * S; idx += nt)
-      Jc[idx] = (k == 0) ? Jn[idx] : Jc[idx] + Jn[idx];
-    // (e) pair-local layer on the 2n pairs of this column
+    for (int idx = tid; idx < nd * S; idx += nt) {
+      const int q = (idx / S) * SP + idx % S;
+      Jc[q] = (k == 0) ? Jn[q] : Jc[q] + Jn[q];
+    }
+    // (e) pair-local layer on the 2n pairs of this column; a tile is one
+    //     pair's (1 + dim) rows — tp and A[d] — x TC features
     if (k < depth - 1) {
       const float* Wt = Pm + cg_tp_w_off(k, depth, dim, S, T);
       const float* bt = Wt + Cin * T;
-      for (int idx = tid; idx < 2 * n * T; idx += nt) {
-        const int p = idx / T, c2 = idx % T;
-        float pre = bt[c2];
-        for (int c = 0; c < Cin; ++c) pre += tp[p * CW + c] * Wt[c * T + c2];
-        const float sg = cg_sigmoid(pre);
-        tpn[p * CW + c2] = cg_softplus(pre);
-        for (int d = 0; d < dim; ++d) {
-          float a = 0.f;
-          for (int c = 0; c < Cin; ++c) a += A[(p * dim + d) * CW + c] * Wt[c * T + c2];
-          An[(p * dim + d) * CW + c2] = sg * a;
+      const int tchunk = T / TC;
+      for (int item = tid; item < 2 * n * tchunk; item += nt) {
+        const int p = item / tchunk, c0 = (item % tchunk) * TC;
+        float pre[TC], a[DM][TC], wrow[TC];
+#pragma unroll
+        for (int j = 0; j < TC; ++j) pre[j] = bt[c0 + j];
+#pragma unroll
+        for (int d = 0; d < DM; ++d)
+#pragma unroll
+          for (int j = 0; j < TC; ++j) a[d][j] = 0.f;
+        for (int c = 0; c < Cin; ++c) {
+          cg_load_row<TC>(Wt + c * T + c0, wrow);
+          const float t = tp[p * CWP + c];
+#pragma unroll
+          for (int j = 0; j < TC; ++j) pre[j] += t * wrow[j];
+#pragma unroll
+          for (int d = 0; d < DM; ++d)
+            if (d < dim) {
+              const float ad = A[(p * dim + d) * CWP + c];
+#pragma unroll
+              for (int j = 0; j < TC; ++j) a[d][j] += ad * wrow[j];
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          const float sgm = cg_sigmoid(pre[j]);
+          tpn[p * CWP + c0 + j] = cg_softplus(pre[j]);
+#pragma unroll
+          for (int d = 0; d < DM; ++d)
+            if (d < dim) An[(p * dim + d) * CWP + c0 + j] = sgm * a[d][j];
         }
       }
       __syncthreads();
       for (int idx = tid; idx < 2 * n * T; idx += nt) {
         const int p = idx / T, c2 = idx % T;
-        tp[p * CW + c2] = (k == 0) ? tpn[p * CW + c2] : tp[p * CW + c2] + tpn[p * CW + c2];
+        tp[p * CWP + c2] = (k == 0) ? tpn[p * CWP + c2] : tp[p * CWP + c2] + tpn[p * CWP + c2];
         for (int d = 0; d < dim; ++d) {
-          const int q = (p * dim + d) * CW + c2;
+          const int q = (p * dim + d) * CWP + c2;
           A[q] = (k == 0) ? An[q] : A[q] + An[q];
         }
       }
@@ -343,12 +445,33 @@ __global__ void cg_flow_jac_kernel(const float* __restrict__ x,
   for (int idx = tid; idx < n * dim * dim; idx += nt) {
     const int i = idx / (dim * dim), b = (idx / dim) % dim, a = idx % dim;
     float v = (i == l && a == b) ? 1.f : 0.f;
-    for (int s = 0; s < S; ++s) v += Jc[(i * dim + a) * S + s] * Wf[s * dim + b];
+    for (int s = 0; s < S; ++s) v += Jc[(i * dim + a) * SP + s] * Wf[s * dim + b];
     Jw[(i * dim + b) * nd + l * dim + a] = v;
   }
 }
 
+// The production widths get the tiled instantiation, anything else the one
+// with run-time widths.
+inline bool cg_flow_jac_tiled(int dim, int S, int T) { return dim == 2 && S == 16 && T == 16; }
+
 #ifndef CG_CPU_SHIM
+template <int S_, int T_, int DIM_>
+static cudaError_t cg_launch_flow_jac(const float* x, const float* params, const float* sig,
+                                      float* J, int B, int n, int dim, int depth, int S,
+                                      int T, float L, cudaStream_t st) {
+  const int smem = (int)sizeof(float) * cg_flow_jac_floats(n, dim, depth, S, T);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(cg_flow_jac_kernel<S_, T_, DIM_>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  cg_flow_jac_kernel<S_, T_, DIM_><<<B * n, 128, smem, st>>>(x, params, sig, J, n, dim,
+                                                           depth, S, T, L);
+  return cudaGetLastError();
+}
+
+extern "C" {
+
 int cg_flow_param_count(int depth, int dim, int S, int T) {
   return cg_param_count(depth, dim, S, T);
 }
@@ -369,28 +492,24 @@ int cg_flow_u_jac(const float* x, const float* params, float* sig, float* u,
   if (dim > CG_MAXDIM || S > CG_MAXF || T > CG_MAXF || 2 * dim + 1 > CG_MAXF)
     return (int)cudaErrorInvalidValue;
   const int smem_f = cg_flow_fwd_smem(n, dim, depth, S, T);
-  const int smem_j = cg_flow_jac_smem(n, dim, depth, S, T);
   cudaError_t e;
   if (smem_f > 48 * 1024) {
     e = cudaFuncSetAttribute(cg_flow_fwd_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_f);
     if (e != cudaSuccess) return (int)e;
   }
-  if (smem_j > 48 * 1024) {
-    e = cudaFuncSetAttribute(cg_flow_jac_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_j);
-    if (e != cudaSuccess) return (int)e;
-  }
   cudaStream_t st = (cudaStream_t)stream;
-  const int fwd_threads = ((cg_imax(n, 32) + 31) / 32) * 32;
+  const int fwd_threads = ((n * CG_FWD_SLICES + 31) / 32) * 32;
   cg_flow_fwd_kernel<<<B, fwd_threads > 256 ? 256 : fwd_threads, smem_f, st>>>(
       x, params, u, sig, n, dim, depth, S, T, L);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  cg_flow_jac_kernel<<<B * n, 128, smem_j, st>>>(x, params, sig, J, n, dim,
-                                                 depth, S, T, L);
-  return (int)cudaGetLastError();
+  if (cg_flow_jac_tiled(dim, S, T))
+    e = cg_launch_flow_jac<16, 16, 2>(x, params, sig, J, B, n, dim, depth, S, T, L, st);
+  else
+    e = cg_launch_flow_jac<0, 0, 0>(x, params, sig, J, B, n, dim, depth, S, T, L, st);
+  return (int)e;
 }
-#endif
 
 }  // extern "C"
+#endif

@@ -67,17 +67,19 @@ __global__ void cg_fused_logp_kernel(const float* __restrict__ u,
     Dr[idx] = c * co;
     Di[idx] = c * s;
   }
-  // G = J^T J
+  // G = J^T J, lower triangle (all the elimination reads)
   for (int idx = tid; idx < nd * nd; idx += nt) {
     const int a = idx / nd, b = idx % nd;
+    if (b > a) continue;
     float acc = 0.f;
     for (int j = 0; j < nd; ++j) acc += Js[j * nd + a] * Js[j * nd + b];
     G[a * ldg + b] = acc;
   }
   __syncthreads();
-  // H = D^H D
+  // H = D^H D, lower triangle
   for (int idx = tid; idx < n * n; idx += nt) {
     const int a = idx / n, b = idx % n;
+    if (b > a) continue;
     float hr = 0.f, hi = 0.f;
     for (int i = 0; i < n; ++i) {
       const float ar = Dr[i * n + a], ai = Di[i * n + a];

@@ -103,7 +103,7 @@ def flow_to_numpy(flow: FermiNet):
 
 
 def load_reference_checkpoint(path: str) -> dict:
-    """Read an ``epoch_%06d.pkl`` written by either driver.
+    """Read an ``epoch_%06d.pkl`` written by either training script.
 
     Returns ``{"x", "params_van", "params_flow"}`` as numpy; a foreign RNG
     ``key`` and optimizer state are dropped (neither carries over between the

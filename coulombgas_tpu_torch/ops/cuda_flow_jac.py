@@ -31,6 +31,9 @@ launches = 0
 
 # Widest feature axis (spsize, tpsize, 2 dim + 1) the kernels take.
 MAX_FEATURES = 32
+# Threads that share one row's pair streams in the forward kernel
+# (CG_FWD_SLICES in csrc/flow_jac.cu).
+FWD_SLICES = 4
 
 
 def flow_u_jac_plain(flow: FermiNet, x):
@@ -47,17 +50,21 @@ def _param_count(depth, dim, S, T):
 
 
 def flow_jac_smem_bytes(n: int, dim: int, cfg) -> int:
-    """Shared memory of one Jacobian-kernel block (mirrors cg_flow_jac_floats)."""
-    S, T = cfg.spsize, cfg.tpsize
-    CW = max(2 * dim + 1, T)
-    floats = (_param_count(cfg.depth, dim, S, T) + n * dim + 4 * n * CW
-              + 4 * n * dim * CW + 2 * n * dim * S + dim * CW + 3 * dim * S)
-    return 4 * floats
+    """Shared memory of one block, the larger of the two kernels' needs
+    (mirrors cg_flow_jac_floats and cg_flow_fwd_floats)."""
+    S, T, depth = cfg.spsize, cfg.tpsize, cfg.depth
+    P = _param_count(depth, dim, S, T)
+    CW, SW = max(2 * dim + 1, T), max(S, dim)
+    CWP, SP = CW | 1, S | 1  # rows padded to an odd stride
+    jac = (((P + 3) & ~3) + 4 * n * CWP + 4 * n * dim * CWP + 2 * n * dim * SP
+           + n * dim + dim * CWP + 3 * dim * S)
+    fwd = P + n * dim + (FWD_SLICES + 1) * depth * n * CW + 2 * n * SW + SW
+    return 4 * max(jac, fwd)
 
 
 def flow_jac_fits(n: int, dim: int, cfg) -> bool:
-    """Whether the kernels take this size: the n ceiling is the Jacobian
-    kernel's shared memory (about 0.6 KB per particle at dim = 2, width 16)."""
+    """Whether the kernels take this size: the n ceiling is shared memory
+    (about 0.7 KB per particle at depth 2, dim 2, width 16)."""
     return (dim <= 3 and max(cfg.spsize, cfg.tpsize, 2 * dim + 1) <= MAX_FEATURES
             and flow_jac_smem_bytes(n, dim, cfg) <= SMEM_LIMIT_BYTES)
 

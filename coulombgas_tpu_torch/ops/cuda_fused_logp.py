@@ -14,11 +14,12 @@ writes, so the two run back to back with no transpose.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from ._build import SMEM_LIMIT_BYTES, check_launch, load_library
-from .logdet import chol_logdet_ref
+from .logdet import PIVOT_FLOOR, chol_logdet_ref
 
 __all__ = ["fused_logp_cuda", "fused_logp_plain", "fused_fits",
            "fused_smem_bytes", "launches"]
@@ -44,25 +45,18 @@ def fused_logp_plain(u, kvec, J, L: float):
     dim = u.shape[-1]
     c = float(L) ** (-dim / 2)
     ang = torch.einsum("bnd,bmd->bnm", u, kvec)
-    Dr, Di = c * torch.cos(ang), c * torch.sin(ang)
-    D = torch.complex(Dr, Di)
-    H = D.mH @ D
-    ld_h = _herm_chol_logdet(H.real, H.imag)
+    D = torch.complex(c * torch.cos(ang), c * torch.sin(ang))
+    ld_h = _herm_chol_logdet(D.mH @ D)
     ld_g = chol_logdet_ref(J.transpose(-1, -2) @ J)
     return ld_h + 0.5 * ld_g
 
 
-def _herm_chol_logdet(Hr, Hi):
-    """Complex pivot-free Cholesky log det of H = Hr + i Hi, deflating."""
-    import math
-
-    from .logdet import PIVOT_FLOOR
-
-    n = Hr.shape[-1]
-    H = torch.complex(Hr, Hi)
-    ld = Hr.new_zeros(Hr.shape[0])
-    rows = torch.arange(n, device=Hr.device)
-    one = Hr.new_ones(())
+def _herm_chol_logdet(H):
+    """Complex pivot-free Cholesky log det of Hermitian H (B, n, n), deflating."""
+    n = H.shape[-1]
+    ld = H.real.new_zeros(H.shape[0])
+    rows = torch.arange(n, device=H.device)
+    one = ld.new_ones(())
     for k in range(n):
         d = H[:, k, k].real
         bad = d < PIVOT_FLOOR

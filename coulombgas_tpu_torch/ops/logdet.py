@@ -117,12 +117,13 @@ class _SpdInverse(torch.autograd.Function):
 
 
 class _LogdetSpd(torch.autograd.Function):
-    """Primal: the pivot-free Cholesky.  Derivative: A^-1 (A symmetric)."""
+    """Primal: the pivot-free Cholesky — no graph is kept of it, so on the GPU
+    it is the kernel behind ``chol_logdet``.  Derivative: A^-1 (A symmetric)."""
 
     @staticmethod
     def forward(ctx, A):
         ctx.save_for_backward(A)
-        return chol_logdet_single(A)
+        return chol_logdet(A.reshape(-1, *A.shape[-2:])).reshape(A.shape[:-2])
 
     @staticmethod
     def backward(ctx, grad):
@@ -133,7 +134,7 @@ class _LogdetSpd(torch.autograd.Function):
 def logdet_spd_single(A):
     """log det of real SPD matrices (..., m, m) with closed-form derivatives.
 
-    Value from ``chol_logdet_single``; the gradient is A^-1 from
+    Value from ``chol_logdet``; the gradient is A^-1 from
     ``gj_inverse_single``, and the gradient's own derivative is the closed
     form -A^-1 dA A^-1, so the Hessian-vector products of the Hutchinson
     Laplacian keep no per-step residuals.

@@ -63,11 +63,15 @@ def make_logp_fast(
     sp_indices = np.asarray(sp_indices)
     jacobian = jacobian or ferminet_apply_and_jac
 
+    tables = {}  # the momenta 2 pi / L * sp_indices, once per device and dtype
+
     def logp_impl(x, flow: FermiNet, state_indices):
         B, n, dim = x.shape
         nd = n * dim
-        k = 2 * np.pi / L * torch.as_tensor(
-            sp_indices, dtype=x.dtype, device=x.device)[state_indices]
+        if (x.device, x.dtype) not in tables:
+            tables[x.device, x.dtype] = 2 * np.pi / L * torch.as_tensor(
+                sp_indices, dtype=x.dtype, device=x.device)
+        k = tables[x.device, x.dtype][state_indices]
         if use_flow_kernel:
             u, J = flow_u_jac_cuda(flow, x)
             return fused_logp_cuda(u, k, J, L)

@@ -1,4 +1,4 @@
-"""Finite-temperature VMC for the homogeneous electron gas — PyTorch/CUDA driver.
+"""Finite-temperature VMC for the homogeneous electron gas — PyTorch/CUDA training CLI.
 
 The port's counterpart of ``main.py``: the same flags, run-directory naming
 and ``data.txt`` columns, for the part of the system that is ported so far —
@@ -119,7 +119,7 @@ def parse_args(argv=None):
     parser.add_argument("--batch", type=int, default=2048,
                         help="batch size per gradient-accumulation step")
     parser.add_argument("--num_devices", type=int, default=0,
-                        help="devices (0 or 1: one GPU is all this driver uses yet)")
+                        help="devices (0 or 1: one GPU is all this script uses yet)")
     parser.add_argument("--acc_steps", type=int, default=4)
     parser.add_argument("--microbatch", type=int, default=0,
                         help="gradient-chunk size bounding device memory (0 = whole batch)")
@@ -340,8 +340,8 @@ def restore(tr: Trainer) -> bool:
     tr.x = torch.as_tensor(ckpt["x"]).to(tr.x)
     van_from_numpy(ckpt["params_van"], tr.van)
     flow_from_numpy(ckpt["params_flow"], tr.flow)
-    # the RNG key and optimizer state of the JAX driver do not carry over;
-    # this driver keeps its own under names of its own
+    # the RNG key and optimizer state of main.py do not carry over;
+    # this script keeps its own under names of its own
     if "torch_opt_state" in ckpt:
         tr.optimizer.load_state_dict(from_host(ckpt["torch_opt_state"]))
     if "torch_generator" in ckpt:

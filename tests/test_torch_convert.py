@@ -73,7 +73,7 @@ def test_conversion_refuses_a_wrong_shape_or_name():
 
 @pytest.mark.skipif(not N13, reason="the checked-in n = 13 checkpoint is missing")
 def test_reference_checkpoint_loads_into_the_port():
-    """An ``epoch_*.pkl`` written by the JAX driver (f32 numpy pytrees)."""
+    """An ``epoch_*.pkl`` written by main.py (f32 numpy pytrees)."""
     ckpt = convert.load_reference_checkpoint(N13[0])
     assert set(ckpt) == {"x", "params_van", "params_flow"}  # key, opt_state dropped
     n, dim, L = 13, 2, float(np.sqrt(np.pi * 13))

@@ -1,7 +1,7 @@
 """The slice as a whole: with fixed (state_indices, x, v) the port's
 ``accumulate`` gives the JAX package's observables and both REINFORCE
 gradients, and one Adam step gives ``optax.adam``'s parameters (f64, 1e-8
-through the log-dets and second derivatives).  Then the driver itself on the
+through the log-dets and second derivatives).  Then main_torch.py itself on the
 checked-in n = 13 pretraining."""
 
 import os
@@ -169,14 +169,14 @@ def test_sample_step_returns_wrapped_walkers(both):
     assert 0 <= float(acc) <= 1
 
 
-# ---- the driver ---------------------------------------------------------------
+# ---- main_torch.py ---------------------------------------------------------------
 
 SMALL = ["--cpu", "--hutchinson", "--n", "13", "--folder", "data/interacting/", "--batch", "4",
          "--mc_therm", "1", "--mc_steps", "3", "--acc_steps", "1", "--epoch", "2",
          "--ckpt_every", "2"]
 
 
-def test_driver_trains_and_resumes_on_the_checked_in_pretraining(tmp_path):
+def test_cli_trains_and_resumes_on_the_checked_in_pretraining(tmp_path):
     import main_torch
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -208,7 +208,7 @@ def test_driver_trains_and_resumes_on_the_checked_in_pretraining(tmp_path):
     (["--laplacian", "ad"], "slice 3"), (["--multihost"], "slice 3"),
     (["--tripwire_sigma", "15"], "slice 3"), (["--num_devices", "4"], "slice 3"),
 ])
-def test_driver_refuses_flags_of_later_slices(flags, word):
+def test_cli_refuses_flags_of_later_slices(flags, word):
     import main_torch
 
     args = main_torch.parse_args(["--cpu", "--hutchinson"] + flags)
@@ -217,7 +217,7 @@ def test_driver_refuses_flags_of_later_slices(flags, word):
     assert "not ported yet" in str(err.value) and word in str(err.value)
 
 
-def test_driver_needs_hutchinson_a_pretrained_van_and_a_device(tmp_path):
+def test_cli_needs_hutchinson_a_pretrained_van_and_a_device(tmp_path):
     import main_torch
 
     with pytest.raises(SystemExit, match="hutchinson"):
