@@ -23,7 +23,6 @@ path, its error, its time and its bound.  The last line is
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import statistics
@@ -390,20 +389,12 @@ def phase_train():
     return counts
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--phases", default="device,build,kernels,train",
-                    help="comma-separated subset, for a quick look at one phase")
-    phases = ap.parse_args(argv).phases.split(",")
+def main():
     t0 = time.time()
     smi = phase_device()
-    if "build" in phases:
-        phase_build()
-    rows = phase_kernels() if "kernels" in phases else []
-    counts = phase_train() if "train" in phases else {}
-    if not {"build", "kernels", "train"} <= set(phases):
-        emit({"phase": "done", "partial": phases, "seconds": round(time.time() - t0, 1)})
-        return
+    phase_build()
+    rows = phase_kernels()
+    counts = phase_train()
     for row in rows:
         row["launches"] = counts[row["name"]]
         check(row["launches"] > 0, "kernel %s was not launched on the main path" % row["name"])

@@ -8,6 +8,6 @@ follow the JAX package; the Metropolis log-density runs on hand-written CUDA
 kernels (``csrc/``, wrapped in ``ops/cuda_*.py``).
 """
 
-from . import config  # sets the TF32 policy
+from . import config  # noqa: F401  (importing it sets the TF32 policy)
 
 __version__ = "0.1.0"

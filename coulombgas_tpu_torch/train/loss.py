@@ -9,7 +9,6 @@ from __future__ import annotations
 import torch
 
 from ..physics.ewald import potential_energy
-from ..wavefunction.logpsi import to_complex
 
 __all__ = ["make_loss"]
 

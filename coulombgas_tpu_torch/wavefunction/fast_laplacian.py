@@ -36,14 +36,17 @@ __all__ = ["make_logpsi_grad_laplacian_analytic"]
 
 
 def make_logpsi_grad_laplacian_analytic(sp_indices, L, flow_jac_lap,
-                                        hutchinson: bool = True):
+                                        hutchinson: bool = True, flow_jac=None):
     """Batched (grad, laplacian) of log Psi with the analytic Slater part.
 
     ``flow_jac_lap(flow, x) -> (u, J (B, nd, nd), lap_u (B, nd))`` supplies
     the analytic flow Jacobian and coordinate Laplacian.  The 1/2 log|det J|
     term is the differentiable Gram-Cholesky 1/4 log det(J J^T): exact
     gradient, Hutchinson v^T H v estimate of its Laplacian (the exact column
-    loop, ``hutchinson=False``, is not ported yet).
+    loop, ``hutchinson=False``, is not ported yet).  That term is
+    differentiated twice and needs J alone: ``flow_jac(flow, x) -> (u, J)``,
+    when given, spares it the Laplacian's propagation (default: the first two
+    results of ``flow_jac_lap``).
 
     Returns ``fn(x, flow, state_indices, generator=None, v=None) ->
     (grad (B, n, dim) complex, laplacian (B,) complex)``.  The Hutchinson
@@ -54,6 +57,8 @@ def make_logpsi_grad_laplacian_analytic(sp_indices, L, flow_jac_lap,
         raise NotImplementedError(
             "hutchinson=False (exact Laplacian of log|det J|) is not ported yet")
     sp_indices = np.asarray(sp_indices)
+    if flow_jac is None:
+        flow_jac = lambda flow, x: flow_jac_lap(flow, x)[:2]  # noqa: E731
 
     @torch.no_grad()
     def slater_part(x, flow, state_indices):
@@ -96,7 +101,7 @@ def make_logpsi_grad_laplacian_analytic(sp_indices, L, flow_jac_lap,
         is the per-walker gradient, and so is the gradient of sum(grad * v)."""
         with torch.enable_grad():
             xg = x.detach().requires_grad_(True)
-            _, J, _ = flow_jac_lap(flow, xg)
+            _, J = flow_jac(flow, xg)
             ljd = 0.25 * logdet_spd_single(J @ J.transpose(-1, -2))
             (grad,) = torch.autograd.grad(ljd.sum(), xg, create_graph=True)
             (hvp,) = torch.autograd.grad((grad * v).sum(), xg)

@@ -221,7 +221,6 @@ class Trainer:
     van: torch.nn.Module
     flow: torch.nn.Module
     sampler: object
-    log_prob: object
     logp: object
     sample_step: object
     accumulate: object
@@ -315,7 +314,7 @@ def build_trainer(args, out_folder=None) -> Trainer:
     # ---- training programs --------------------------------------------------
     sample_step = make_sample_step(sampler, logp, args.mc_steps, args.mc_stddev, L, args.batch)
     logpsi_grad_laplacian = make_logpsi_grad_laplacian_analytic(
-        sp_indices_twist, L, flow_jac_lap, hutchinson=args.hutchinson)
+        sp_indices_twist, L, flow_jac_lap, hutchinson=args.hutchinson, flow_jac=flow_jac)
     observable_and_lossfn = make_loss(
         log_prob, logpsi, logpsi_grad_laplacian, args.kappa, G, L, args.rs, Vconst, beta)
     accumulate, apply_update = make_accumulate_and_apply(
@@ -323,7 +322,7 @@ def build_trainer(args, out_folder=None) -> Trainer:
 
     generator = torch.Generator(device=device).manual_seed(42)
     x = L * torch.rand(args.batch, n, dim, generator=generator, dtype=rdtype, device=device)
-    return Trainer(args, device, L, sp_indices_twist, van, flow, sampler, log_prob, logp,
+    return Trainer(args, device, L, sp_indices_twist, van, flow, sampler, logp,
                    sample_step, accumulate, apply_update, optimizer, generator, x, path)
 
 

@@ -78,7 +78,8 @@ def both():
     # ---- port ---------------------------------------------------------------
     _, log_prob = make_autoregressive_sampler(sp, N, M)
     logpsi = make_logpsi_fast(ferminet_apply_and_jac, sp, L)
-    gl = make_logpsi_grad_laplacian_analytic(sp, L, ferminet_apply_jac_lap)
+    gl = make_logpsi_grad_laplacian_analytic(sp, L, ferminet_apply_jac_lap,
+                                             flow_jac=ferminet_apply_and_jac)  # as main_torch.py does
     loss = make_loss(log_prob, logpsi, gl, KAPPA, G, L, RS, Vconst, BETA)
     accumulate, apply_update = make_accumulate_and_apply(loss, 1)
     acc = accumulate(van, flow, t(si), t(x), None, init_accumulators(van, flow), v=t(v))
