@@ -36,7 +36,7 @@ def make_autoregressive_sampler(sp_indices, n: int, num_states: int,
         token embedding table, ordered the same way the VAN's logits are.
       n: number of fermions.
       num_states: number of single-particle states M.
-      mask_fn: if True, additionally return the mask builder (for tests).
+      mask_fn: if True, additionally return the function that makes the mask (for tests).
 
     Returns:
       sampler(van, generator, batch) -> (batch, n) int64 occupation indices,
