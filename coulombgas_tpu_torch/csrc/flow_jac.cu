@@ -83,24 +83,32 @@ __device__ inline float cg_softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
 }
 
+}  // extern "C"
+
 // Pair features of the pair (i, j): t[c], c < 2 dim + 1, =
 // [cos k2 r (dim), sin k2 r (dim), |sin k1 r|], r = x_i - x_j; and, if A is
 // given, A[d * lda + c] = d t[c] / d r[d].  The diagonal pair i == j is the
-// constant [1.., 0.., 0] with zero derivative.
-__device__ inline void cg_pair_feat(const float* xs, int i, int j, int dim,
+// constant [1.., 0.., 0] with zero derivative.  With DIM_ given every index
+// into t is a constant, so a caller's t can live in registers.
+template <int DIM_>
+__device__ inline void cg_pair_feat(const float* xs, int i, int j, int dim_rt,
                                     float k1, float k2, float* t, float* A,
                                     int lda) {
+  const int dim = DIM_ ? DIM_ : dim_rt;
+  constexpr int DM = DIM_ ? DIM_ : CG_MAXDIM;
   const int C0 = 2 * dim + 1;
-  float s2v[CG_MAXDIM], c2v[CG_MAXDIM], s1v[CG_MAXDIM], c1v[CG_MAXDIM];
+  float s2v[DM], c2v[DM], s1v[DM], c1v[DM];
   float sumsq = 0.f;
-  for (int d = 0; d < dim; ++d) {
-    const float r = xs[i * dim + d] - xs[j * dim + d];
-    sincosf(k2 * r, &s2v[d], &c2v[d]);
-    sincosf(k1 * r, &s1v[d], &c1v[d]);
-    sumsq += s1v[d] * s1v[d];
-    t[d] = c2v[d];
-    t[dim + d] = s2v[d];
-  }
+#pragma unroll
+  for (int d = 0; d < DM; ++d)
+    if (d < dim) {
+      const float r = xs[i * dim + d] - xs[j * dim + d];
+      sincosf(k2 * r, &s2v[d], &c2v[d]);
+      sincosf(k1 * r, &s1v[d], &c1v[d]);
+      sumsq += s1v[d] * s1v[d];
+      t[d] = c2v[d];
+      t[dim + d] = s2v[d];
+    }
   const float dij = (i == j) ? 0.f : sqrtf(sumsq);
   t[2 * dim] = dij;
   if (A) {
@@ -108,11 +116,13 @@ __device__ inline void cg_pair_feat(const float* xs, int i, int j, int dim,
       for (int c = 0; c < C0; ++c) A[d * lda + c] = 0.f;
     if (i != j) {
       const float safe = dij > 0.f ? dij : 1.f;
-      for (int d = 0; d < dim; ++d) {
-        A[d * lda + d] = -k2 * s2v[d];
-        A[d * lda + dim + d] = k2 * c2v[d];
-        A[d * lda + 2 * dim] = k1 * s1v[d] * c1v[d] / safe;
-      }
+#pragma unroll
+      for (int d = 0; d < DM; ++d)
+        if (d < dim) {
+          A[d * lda + d] = -k2 * s2v[d];
+          A[d * lda + dim + d] = k2 * c2v[d];
+          A[d * lda + 2 * dim] = k1 * s1v[d] * c1v[d] / safe;
+        }
     }
   }
 }
@@ -129,12 +139,21 @@ __host__ __device__ inline int cg_flow_fwd_floats(int n, int dim, int depth, int
          (CG_FWD_SLICES + 1) * depth * n * CW + 2 * n * SW + SW;
 }
 
+// A template over (S, T, dim) like the Jacobian kernel below: with the widths
+// given, a thread's pair stream t[] is indexed by constants only and stays in
+// registers; with zeros the widths are taken at run time and it lives in
+// local memory.
+template <int S_, int T_, int DIM_>
 __global__ void cg_flow_fwd_kernel(const float* __restrict__ x,
                                    const float* __restrict__ params,
                                    float* __restrict__ u, float* __restrict__ sig,
-                                   int n, int dim, int depth, int S, int T,
+                                   int n, int dim_rt, int depth, int S_rt, int T_rt,
                                    float L) {
   extern __shared__ __align__(16) float cg_smem[];
+  const int S = S_ ? S_ : S_rt, T = T_ ? T_ : T_rt, dim = DIM_ ? DIM_ : dim_rt;
+  // entries of one stream, and the bound of the loops over them: a constant
+  // (the loop bodies test c < Cin) or the run-time width itself
+  constexpr int TM = T_ ? (T_ > 2 * DIM_ + 1 ? T_ : 2 * DIM_ + 1) : CG_MAXF;
   const int C0 = 2 * dim + 1, CW = cg_imax(C0, T), SW = cg_imax(S, dim);
   const int P = cg_param_count(depth, dim, S, T);
   float* Pm = cg_smem;              // packed weights
@@ -161,20 +180,28 @@ __global__ void cg_flow_fwd_kernel(const float* __restrict__ x,
     const int i = slot / CG_FWD_SLICES, sl = slot % CG_FWD_SLICES;
     float* mine = part + sl * depth * n * CW;
     for (int j = sl; j < n; j += CG_FWD_SLICES) {
-      float t[CG_MAXF], tn[CG_MAXF];
-      cg_pair_feat(xs, i, j, dim, k1, k2, t, nullptr, 0);
+      float t[TM], tn[TM];
+      cg_pair_feat<DIM_>(xs, i, j, dim, k1, k2, t, nullptr, 0);
       int Cin = C0;
       for (int k = 0; k < depth; ++k) {
-        for (int c = 0; c < Cin; ++c) mine[(k * n + i) * CW + c] += t[c];
+#pragma unroll
+        for (int c = 0; c < (T_ ? TM : Cin); ++c)
+          if (c < Cin) mine[(k * n + i) * CW + c] += t[c];
         if (k < depth - 1) {
           const float* Wt = Pm + cg_tp_w_off(k, depth, dim, S, T);
           const float* bt = Wt + Cin * T;
-          for (int c2 = 0; c2 < T; ++c2) {
-            float pre = bt[c2];
-            for (int c = 0; c < Cin; ++c) pre += t[c] * Wt[c * T + c2];
-            tn[c2] = cg_softplus(pre);
-          }
-          for (int c2 = 0; c2 < T; ++c2) t[c2] = (k == 0) ? tn[c2] : t[c2] + tn[c2];
+#pragma unroll
+          for (int c2 = 0; c2 < (T_ ? TM : T); ++c2)
+            if (c2 < T) {
+              float pre = bt[c2];
+#pragma unroll
+              for (int c = 0; c < (T_ ? TM : Cin); ++c)
+                if (c < Cin) pre += t[c] * Wt[c * T + c2];
+              tn[c2] = cg_softplus(pre);
+            }
+#pragma unroll
+          for (int c2 = 0; c2 < (T_ ? TM : T); ++c2)
+            if (c2 < T) t[c2] = (k == 0) ? tn[c2] : t[c2] + tn[c2];
           Cin = T;
         }
       }
@@ -251,8 +278,6 @@ __host__ __device__ inline int cg_flow_jac_floats(int n, int dim, int depth, int
          + n * dim + dim * CWP + 3 * dim * S;      // x, sumA, meanJ, sumAW, mJW
 }
 
-}  // extern "C"
-
 // w[0..W) = p[0..W); as float4 when the width allows (p is then 16-byte aligned)
 template <int W>
 __device__ inline void cg_load_row(const float* p, float* w) {
@@ -305,7 +330,7 @@ __global__ void cg_flow_jac_kernel(const float* __restrict__ x,
   __syncthreads();
   for (int p = tid; p < 2 * n; p += nt) {
     const int i = (p < n) ? p : l, j = (p < n) ? l : p - n;
-    cg_pair_feat(xs, i, j, dim, k1, k2, tp + p * CWP, A + p * dim * CWP, CWP);
+    cg_pair_feat<DIM_>(xs, i, j, dim, k1, k2, tp + p * CWP, A + p * dim * CWP, CWP);
   }
   __syncthreads();
 
@@ -456,6 +481,22 @@ inline bool cg_flow_jac_tiled(int dim, int S, int T) { return dim == 2 && S == 1
 
 #ifndef CG_CPU_SHIM
 template <int S_, int T_, int DIM_>
+static cudaError_t cg_launch_flow_fwd(const float* x, const float* params, float* sig,
+                                      float* u, int B, int n, int dim, int depth, int S,
+                                      int T, float L, cudaStream_t st) {
+  const int smem = (int)sizeof(float) * cg_flow_fwd_floats(n, dim, depth, S, T);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(cg_flow_fwd_kernel<S_, T_, DIM_>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int threads = ((n * CG_FWD_SLICES + 31) / 32) * 32;
+  cg_flow_fwd_kernel<S_, T_, DIM_><<<B, threads > 256 ? 256 : threads, smem, st>>>(
+      x, params, u, sig, n, dim, depth, S, T, L);
+  return cudaGetLastError();
+}
+
+template <int S_, int T_, int DIM_>
 static cudaError_t cg_launch_flow_jac(const float* x, const float* params, const float* sig,
                                       float* J, int B, int n, int dim, int depth, int S,
                                       int T, float L, cudaStream_t st) {
@@ -491,20 +532,13 @@ int cg_flow_u_jac(const float* x, const float* params, float* sig, float* u,
   if (B <= 0) return 0;
   if (dim > CG_MAXDIM || S > CG_MAXF || T > CG_MAXF || 2 * dim + 1 > CG_MAXF)
     return (int)cudaErrorInvalidValue;
-  const int smem_f = cg_flow_fwd_smem(n, dim, depth, S, T);
-  cudaError_t e;
-  if (smem_f > 48 * 1024) {
-    e = cudaFuncSetAttribute(cg_flow_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_f);
-    if (e != cudaSuccess) return (int)e;
-  }
   cudaStream_t st = (cudaStream_t)stream;
-  const int fwd_threads = ((n * CG_FWD_SLICES + 31) / 32) * 32;
-  cg_flow_fwd_kernel<<<B, fwd_threads > 256 ? 256 : fwd_threads, smem_f, st>>>(
-      x, params, u, sig, n, dim, depth, S, T, L);
-  e = cudaGetLastError();
+  const bool tiled = cg_flow_jac_tiled(dim, S, T);
+  cudaError_t e =
+      tiled ? cg_launch_flow_fwd<16, 16, 2>(x, params, sig, u, B, n, dim, depth, S, T, L, st)
+            : cg_launch_flow_fwd<0, 0, 0>(x, params, sig, u, B, n, dim, depth, S, T, L, st);
   if (e != cudaSuccess) return (int)e;
-  if (cg_flow_jac_tiled(dim, S, T))
+  if (tiled)
     e = cg_launch_flow_jac<16, 16, 2>(x, params, sig, J, B, n, dim, depth, S, T, L, st);
   else
     e = cg_launch_flow_jac<0, 0, 0>(x, params, sig, J, B, n, dim, depth, S, T, L, st);
