@@ -204,7 +204,8 @@ def phase_kernels():
         us_p, Js_p = cuda_flow_jac.flow_u_jac_plain(flow, xs)
     check(bool(torch.isfinite(us).all() and torch.isfinite(Js).all()),
           "flow_u_jac: non-finite output for coincident particles")
-    check(max_err(Js, Js_p) <= TOL_UJ, "flow_u_jac coincident vs plain: %g" % max_err(Js, Js_p))
+    check(max_err(us, us_p) <= TOL_U and max_err(Js, Js_p) <= TOL_UJ,
+          "flow_u_jac coincident vs plain: u %g J %g" % (max_err(us, us_p), max_err(Js, Js_p)))
     ur, Jr = cuda_flow_jac.flow_u_jac_cuda(flow, x[:BATCH - 1])
     check(ur.shape[0] == BATCH - 1 and torch.equal(ur, u[:-1]) and torch.equal(Jr, J[:-1]),
           "flow_u_jac: ragged batch differs from the full batch")
@@ -221,6 +222,13 @@ def phase_kernels():
         check(max_err(ug, ug_p) <= TOL_U and max_err(Jg, Jg_p) <= TOL_UJ,
               "flow_u_jac (depth %d, dim %d, widths %d/%d) vs plain: u %g J %g" % (
                   depth, dim, S, T, max_err(ug, ug_p), max_err(Jg, Jg_p)))
+    # the shared-memory budget, as the built library states it
+    big = FermiNetConfig(DEPTH, SPSIZE, TPSIZE, L)
+    check(cuda_flow_jac.flow_jac_fits(N, DIM, cfg) and cuda_flow_jac.flow_jac_fits(57, DIM, big)
+          and cuda_flow_jac.flow_jac_smem_bytes(57, DIM, big) > cuda_flow_jac.flow_jac_smem_bytes(N, DIM, cfg)
+          and not cuda_flow_jac.flow_jac_fits(2000, DIM, big)
+          and not cuda_flow_jac.flow_jac_fits(N, DIM, FermiNetConfig(DEPTH, 64, TPSIZE, L)),
+          "flow_u_jac: shared-memory budget")
     with torch.no_grad():
         ms = time_ms(lambda: cuda_flow_jac.flow_u_jac_cuda(flow, x), 20)
         plain_ms = time_ms(lambda: cuda_flow_jac.flow_u_jac_plain(flow, x), 5)
@@ -249,27 +257,48 @@ def phase_kernels():
     check(e32 <= TOL_LOGP_MAX and e64 <= TOL_LOGP_MAX,
           "fused_logp vs plain, max: f32 %g f64 %g" % (e32, e64))
     check(q32 <= TOL_LOGP and q64 <= TOL_LOGP, "fused_logp vs plain, p99: f32 %g f64 %g" % (q32, q64))
-    # singular: two equal rows of u make D rank-deficient; a zero J likewise
+    # singular: two equal rows of u make D rank-deficient (walkers 0-31), a
+    # zero J makes G zero (walkers 32-63)
     us = u[:64].clone()
-    us[:, 1] = us[:, 0]
+    us[:32, 1] = us[:32, 0]
     Jz = J[:64].clone()
     Jz[32:] = 0
     lps = cuda_fused_logp.fused_logp_cuda(us, kvec[:64], Jz, L)
     check(bool(torch.isfinite(lps).all()) and float(lps.max()) < float(lp.min()) - 20,
           "fused_logp: singular input not finite and strongly negative: max %g" % float(lps.max()))
+    # Held against the plain version where the deflation is exact.  Equal rows
+    # leave a roundoff-sized last pivot, whose logarithm is noise in any f32
+    # version, so those walkers are not compared.  A zero J deflates all nd
+    # pivots of G; a box so large that n / L^dim is below the pivot floor
+    # deflates all n pivots of H.
+    lps_p = cuda_fused_logp.fused_logp_plain(us, kvec[:64], Jz, L)
+    e_sing = max_err(lps[32:], lps_p[32:])
+    L_huge = 1e17
+    lph = cuda_fused_logp.fused_logp_cuda(u[:64], kvec[:64], J[:64], L_huge)
+    e_sing = max(e_sing, max_err(lph, cuda_fused_logp.fused_logp_plain(u[:64], kvec[:64], J[:64], L_huge)))
+    check(bool(torch.isfinite(lph).all()) and float(lph.max()) < N * math.log(1e-30) + 100,
+          "fused_logp: all-deflated Hermitian part: max %g" % float(lph.max()))
+    check(e_sing <= TOL_LOGP_MAX, "fused_logp singular vs plain: %g" % e_sing)
+    check(cuda_fused_logp.fused_fits(N, DIM) and cuda_fused_logp.fused_fits(57, 2)
+          and not cuda_fused_logp.fused_fits(200, 2)
+          and cuda_fused_logp.fused_smem_bytes(N, DIM) < 48 * 1024,
+          "fused_logp: shared-memory budget")
     lpr = cuda_fused_logp.fused_logp_cuda(u[:-1], kvec[:-1], J[:-1], L)
     check(lpr.shape[0] == BATCH - 1 and torch.equal(lpr, lp[:-1]), "fused_logp: ragged batch differs")
     ms = time_ms(lambda: cuda_fused_logp.fused_logp_cuda(u, kvec, J, L), 20)
     plain_ms = time_ms(lambda: cuda_fused_logp.fused_logp_plain(u, kvec, J, L), 5)
     nbytes = 4 * BATCH * (nd * nd + 2 * N * DIM + 1)
-    flops = BATCH * (2 * nd**3 + 8 * N**3 + 2 * nd**3 / 3 + 8 * N**3 / 3 + 2 * N * N * DIM)
+    # lower triangles only: both Grams are symmetric / Hermitian (a complex
+    # multiply-add is 8 flops), and a Cholesky elimination costs m^3 / 3
+    flops = BATCH * (nd**3 + 4 * N**3 + nd**3 / 3 + 4 * N**3 / 3 + 2 * N * N * DIM)
     t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
     rows.append({
         "name": "fused_logp", "route": "cuda",
         "source": "coulombgas_tpu_torch/csrc/fused_logp.cu",
         "replaces": "coulombgas_tpu/ops/pallas_fused_logp.py:76",
         "max_abs_err": e32, "max_abs_err_f64": e64, "p99_abs_err": q32,
-        "p99_abs_err_f64": q64, "tolerance": TOL_LOGP_MAX, "tolerance_p99": TOL_LOGP,
+        "p99_abs_err_f64": q64, "singular_abs_err": e_sing,
+        "tolerance": TOL_LOGP_MAX, "tolerance_p99": TOL_LOGP,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
         "library_ms": None,
@@ -300,6 +329,8 @@ def phase_kernels():
     check(bool(torch.isfinite(lds).all()) and float(lds.max()) < -40,
           "chol_logdet: singular input not finite and strongly negative: max %g" % float(lds.max()))
     check(max_err(lds, cuda_logdet.chol_logdet_plain(As)) <= 2 * TOL_LOGP, "chol_logdet singular vs plain")
+    check(cuda_logdet.chol_logdet_fits(nd) and not cuda_logdet.chol_logdet_fits(400),
+          "chol_logdet: shared-memory budget")
     ldr = cuda_logdet.chol_logdet_cuda(A[:-1])
     check(ldr.shape[0] == K3_BATCH - 1 and torch.equal(ldr, ld[:-1]), "chol_logdet: ragged batch differs")
     ms = time_ms(lambda: cuda_logdet.chol_logdet_cuda(A), 20)
@@ -307,7 +338,7 @@ def phase_kernels():
     library_ms = time_ms(
         lambda: 2 * torch.linalg.cholesky(A).diagonal(dim1=-2, dim2=-1).log().sum(-1), 10)
     nbytes = 4 * K3_BATCH * (nd * nd + 1)
-    flops = K3_BATCH * 2 * nd**3 / 3
+    flops = K3_BATCH * nd**3 / 3
     t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
     rows.append({
         "name": "chol_logdet", "route": "cuda",

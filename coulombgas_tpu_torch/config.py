@@ -14,7 +14,6 @@ TF32, which shows as a logp error of order 0.1 against the f64 oracle.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import torch
@@ -55,12 +54,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 def default_precision(device=None) -> Precision:
-    """f64 on the CPU, f32 on the GPU; COULOMBGAS_PRECISION={f32,f64} overrides."""
-    env = os.environ.get("COULOMBGAS_PRECISION", "").lower()
-    if env in ("f32", "float32"):
-        return F32
-    if env in ("f64", "float64"):
-        return F64
+    """f64 on the CPU, f32 on the GPU."""
     return F64 if resolve_device(device).type == "cpu" else F32
 
 

@@ -7,10 +7,11 @@
 // point flow_u_jac_pallas).  Same mathematics as the plain version
 // models/ferminet_jac.py:ferminet_apply_and_jac, any depth.
 //
-// Bound on this card: bytes.  What must move is x in, u and J (nd*nd floats
-// per walker) out; the arithmetic (about n^2 dim S (S + C) multiply-adds per
-// walker and layer) is one to two orders below the f32 rate those bytes
-// allow.  The difficulty is not the bound but the state: the carried
+// Bound on this card: operations.  What must move is x in, u and J (nd*nd
+// floats per walker) out; the arithmetic (about n^2 dim S (S + C)
+// multiply-adds per walker and layer, 2.7 Mflop a walker at n = 29, depth 2,
+// widths 16) takes about ten times as long at the f32 rate as those bytes at
+// the memory rate.  The difficulty is not the bound but the state: the carried
 // Jacobian Jsp[i][l][d][s] and the pair-derivative block A[i][j][d][c] are
 // about 107 KB each per walker at n = 29, S = C = 16, and do not fit one
 // block's shared memory together.
@@ -44,7 +45,7 @@
 //
 // Nothing but x, the weights, the scratch, u and J touches device memory.
 // The n ceiling is the shared-memory budget of cg_flow_jac_kernel (see
-// cg_flow_jac_smem); feature widths are capped at CG_MAXF by the per-thread
+// cg_flow_smem); feature widths are capped at CG_MAXF by the per-thread
 // arrays of the forward kernel, dim at 3.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -516,11 +517,12 @@ extern "C" {
 int cg_flow_param_count(int depth, int dim, int S, int T) {
   return cg_param_count(depth, dim, S, T);
 }
-int cg_flow_fwd_smem(int n, int dim, int depth, int S, int T) {
-  return (int)sizeof(float) * cg_flow_fwd_floats(n, dim, depth, S, T);
-}
-int cg_flow_jac_smem(int n, int dim, int depth, int S, int T) {
-  return (int)sizeof(float) * cg_flow_jac_floats(n, dim, depth, S, T);
+// Shared memory of one block in bytes, the larger of the two kernels' needs;
+// -1 where dim or a feature width is beyond what the kernels take.
+int cg_flow_smem(int n, int dim, int depth, int S, int T) {
+  if (dim > CG_MAXDIM || S > CG_MAXF || T > CG_MAXF || 2 * dim + 1 > CG_MAXF) return -1;
+  return (int)sizeof(float) * cg_imax(cg_flow_fwd_floats(n, dim, depth, S, T),
+                                      cg_flow_jac_floats(n, dim, depth, S, T));
 }
 
 // x (B, n, dim), params packed as above, sig scratch (B, depth, n, S),
@@ -530,8 +532,7 @@ int cg_flow_u_jac(const float* x, const float* params, float* sig, float* u,
                   float* J, int B, int n, int dim, int depth, int S, int T,
                   float L, void* stream) {
   if (B <= 0) return 0;
-  if (dim > CG_MAXDIM || S > CG_MAXF || T > CG_MAXF || 2 * dim + 1 > CG_MAXF)
-    return (int)cudaErrorInvalidValue;
+  if (cg_flow_smem(n, dim, depth, S, T) < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const bool tiled = cg_flow_jac_tiled(dim, S, T);
   cudaError_t e =

@@ -6,11 +6,13 @@
 // Replaces: coulombgas_tpu/ops/pallas_fused_logp.py, _fused_logp_kernel
 // (entry point fused_logp_pallas).
 //
-// Bound on this card: bytes.  Per walker the kernel must read J (nd*nd
-// floats) and u, k (n*dim each) and write one float; the two Gram products
-// (nd^3 + 4 n^3 multiply-adds) and two eliminations are small beside the f32
-// rate those bytes allow.  In practice the kernel is limited by latency: the
-// nd + n dependent elimination steps each end in a block-wide barrier.
+// Bound on this card: operations, narrowly.  Per walker the kernel must read
+// J (nd*nd floats) and u, k (n*dim each) and write one float; the lower
+// triangles of the two Gram products (nd^3 + 4 n^3 flops) and the two
+// eliminations (nd^3/3 + 4 n^3/3) take about 1.4 times as long at the f32
+// rate as those bytes at the memory rate (n = 29, dim = 2).  In practice the
+// kernel is limited by latency: the nd + n dependent elimination steps each
+// end in a block-wide barrier.
 //
 // Design: everything between the inputs and the one output stays in shared
 // memory — the angle matrix, cos/sin, the Hermitian Gram H (real and

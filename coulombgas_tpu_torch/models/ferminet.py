@@ -16,6 +16,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..config import resolve_device
+
 __all__ = ["FermiNetConfig", "Linear", "FermiNet", "init_ferminet_params",
            "ferminet_apply", "softplus"]
 
@@ -72,13 +74,14 @@ class FermiNet(nn.Module):
 
 
 def init_ferminet_params(cfg: FermiNetConfig, dim: int, generator=None,
-                         dtype=torch.float32, device="cpu") -> FermiNet:
+                         dtype=torch.float32, device=None) -> FermiNet:
     """Flow with N(0, init_stddev^2) weights and zero biases.
 
-    ``generator`` is a CPU ``torch.Generator``; the draws are made on the CPU
-    so that one seed gives the same flow on either device.
+    ``device=None`` means CUDA and raises where there is none.  ``generator``
+    is a CPU ``torch.Generator``; the draws are made on the CPU and copied, so
+    that one seed gives the same flow on either device.
     """
-    flow = FermiNet(cfg, dim, dtype, device)
+    flow = FermiNet(cfg, dim, dtype, resolve_device(device))
     with torch.no_grad():
         for lin in [*flow.sp, *flow.tp, flow.final]:
             w = torch.randn(lin.w.shape, generator=generator, dtype=torch.float64)

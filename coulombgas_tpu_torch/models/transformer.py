@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..config import resolve_device
 from .ferminet import Linear
 
 __all__ = [
@@ -110,11 +111,13 @@ def _variance_scaling(gen, shape, scale, mode="fan_in"):
 
 
 def init_transformer_params(cfg: TransformerConfig, input_size: int, generator=None,
-                            dtype=torch.float32, device="cpu") -> Transformer:
+                            dtype=torch.float32, device=None) -> Transformer:
     """VAN with the reference's init scales (init_scale = 0.02 / num_layers,
     variance-scaling truncated normals, x1hat ~ TruncatedNormal with stddev
-    sqrt(init_scale / output_size)); draws made on the CPU from ``generator``."""
-    van = Transformer(cfg, input_size, dtype, device)
+    sqrt(init_scale / output_size)); draws made on the CPU from ``generator``
+    and copied to ``device`` (``None`` means CUDA and raises where there is
+    none)."""
+    van = Transformer(cfg, input_size, dtype, resolve_device(device))
     scale = 0.02 / cfg.num_layers
     M = cfg.output_size
     with torch.no_grad():
@@ -162,8 +165,10 @@ def transformer_apply(van: Transformer, x):
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, n: int, dtype=torch.float32,
-                  device="cpu"):
-    """Per-layer K/V caches of static length n: (B, layers, n, heads, key_size)."""
+                  device=None):
+    """Per-layer K/V caches of static length n: (B, layers, n, heads, key_size);
+    ``device=None`` means CUDA and raises where there is none."""
+    device = resolve_device(device)
     shape = (batch, cfg.num_layers, n, cfg.num_heads, cfg.key_size)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))

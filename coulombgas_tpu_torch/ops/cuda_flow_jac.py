@@ -23,17 +23,11 @@ from ..models.ferminet_jac import ferminet_apply_and_jac
 from ._build import SMEM_LIMIT_BYTES, check_launch, load_library
 
 __all__ = ["flow_u_jac_cuda", "flow_u_jac_plain", "flow_jac_fits",
-           "flow_jac_smem_bytes", "pack_flow_params", "MAX_FEATURES", "launches"]
+           "flow_jac_smem_bytes", "pack_flow_params", "launches"]
 
 # Number of wrapper calls that launched the kernels (each call launches the
 # forward kernel and the Jacobian kernel once).
 launches = 0
-
-# Widest feature axis (spsize, tpsize, 2 dim + 1) the kernels take.
-MAX_FEATURES = 32
-# Threads that share one row's pair streams in the forward kernel
-# (CG_FWD_SLICES in csrc/flow_jac.cu).
-FWD_SLICES = 4
 
 
 def flow_u_jac_plain(flow: FermiNet, x):
@@ -41,32 +35,17 @@ def flow_u_jac_plain(flow: FermiNet, x):
     return ferminet_apply_and_jac(flow, x)
 
 
-def _param_count(depth, dim, S, T):
-    C0 = 2 * dim + 1
-    count = (2 * dim + C0) * S + S + (depth - 1) * ((2 * S + T) * S + S)
-    if depth > 1:
-        count += C0 * T + T + (depth - 2) * (T * T + T)
-    return count + S * dim + dim
-
-
 def flow_jac_smem_bytes(n: int, dim: int, cfg) -> int:
-    """Shared memory of one block, the larger of the two kernels' needs
-    (mirrors cg_flow_jac_floats and cg_flow_fwd_floats)."""
-    S, T, depth = cfg.spsize, cfg.tpsize, cfg.depth
-    P = _param_count(depth, dim, S, T)
-    CW, SW = max(2 * dim + 1, T), max(S, dim)
-    CWP, SP = CW | 1, S | 1  # rows padded to an odd stride
-    jac = (((P + 3) & ~3) + 4 * n * CWP + 4 * n * dim * CWP + 2 * n * dim * SP
-           + n * dim + dim * CWP + 3 * dim * S)
-    fwd = P + n * dim + (FWD_SLICES + 1) * depth * n * CW + 2 * n * SW + SW
-    return 4 * max(jac, fwd)
+    """Shared memory of one block as the built library states it, the larger
+    of the two kernels' needs; -1 where dim or a width is beyond the kernels."""
+    return _lib().cg_flow_smem(n, dim, cfg.depth, cfg.spsize, cfg.tpsize)
 
 
 def flow_jac_fits(n: int, dim: int, cfg) -> bool:
-    """Whether the kernels take this size: the n ceiling is shared memory
-    (about 0.7 KB per particle at depth 2, dim 2, width 16)."""
-    return (dim <= 3 and max(cfg.spsize, cfg.tpsize, 2 * dim + 1) <= MAX_FEATURES
-            and flow_jac_smem_bytes(n, dim, cfg) <= SMEM_LIMIT_BYTES)
+    """Whether the kernels take this size: dim <= 3, widths <= 32, and the n
+    ceiling is shared memory (about 0.7 KB per particle at depth 2, dim 2,
+    width 16).  Asks the built library, so it needs ``nvcc``."""
+    return 0 <= flow_jac_smem_bytes(n, dim, cfg) <= SMEM_LIMIT_BYTES
 
 
 def pack_flow_params(flow: FermiNet):
@@ -83,6 +62,8 @@ def _lib():
     lib.cg_flow_u_jac.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.cg_flow_u_jac.restype = ctypes.c_int
+    lib.cg_flow_smem.argtypes = [ctypes.c_int] * 5
+    lib.cg_flow_param_count.argtypes = [ctypes.c_int] * 4
     return lib
 
 
@@ -107,13 +88,14 @@ def flow_u_jac_cuda(flow: FermiNet, x):
     if not flow_jac_fits(n, dim, cfg):
         raise ValueError(
             "n = %d, dim = %d, spsize = %d, tpsize = %d is beyond the flow "
-            "kernel (shared memory %d of %d bytes, widths <= %d, dim <= 3)" % (
+            "kernel (shared memory %d of %d bytes; -1: a width > 32 or dim > 3)" % (
                 n, dim, cfg.spsize, cfg.tpsize,
-                flow_jac_smem_bytes(n, dim, cfg), SMEM_LIMIT_BYTES, MAX_FEATURES))
+                flow_jac_smem_bytes(n, dim, cfg), SMEM_LIMIT_BYTES))
     params = pack_flow_params(flow)
     if params.device != x.device:
         raise ValueError("flow parameters and x must lie on one device")
-    assert params.numel() == _param_count(cfg.depth, dim, cfg.spsize, cfg.tpsize)
+    assert params.numel() == _lib().cg_flow_param_count(
+        cfg.depth, dim, cfg.spsize, cfg.tpsize)
     x = x.contiguous()
     nd = n * dim
     u = torch.empty(B, n, dim, dtype=torch.float32, device=x.device)

@@ -29,14 +29,13 @@ launches = 0
 
 
 def fused_smem_bytes(n: int, dim: int) -> int:
-    """Shared memory of one walker's block (mirrors cg_fused_logp_floats)."""
-    nd = n * dim
-    floats = nd * nd + nd * (nd | 1) + 2 * n * n + 2 * n * (n | 1) + 2 * n * dim
-    return 4 * floats
+    """Shared memory of one walker's block, as the built library states it."""
+    return _lib().cg_fused_logp_smem(n, dim)
 
 
 def fused_fits(n: int, dim: int) -> bool:
-    """Whether one walker fits a thread block's shared memory."""
+    """Whether one walker fits a thread block's shared memory.  Asks the
+    built library, so it needs ``nvcc``."""
     return fused_smem_bytes(n, dim) <= SMEM_LIMIT_BYTES
 
 
@@ -73,6 +72,7 @@ def _lib():
     lib.cg_fused_logp.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.cg_fused_logp.restype = ctypes.c_int
+    lib.cg_fused_logp_smem.argtypes = [ctypes.c_int] * 2
     return lib
 
 

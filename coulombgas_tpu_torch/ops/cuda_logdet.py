@@ -25,8 +25,9 @@ chol_logdet_plain = chol_logdet_ref
 
 
 def chol_logdet_fits(m: int) -> bool:
-    """Whether one m x m matrix (odd row stride) fits a block's shared memory."""
-    return 4 * m * (m | 1) <= SMEM_LIMIT_BYTES
+    """Whether one m x m matrix fits a block's shared memory.  Asks the built
+    library, so it needs ``nvcc``."""
+    return _lib().cg_chol_logdet_smem(m) <= SMEM_LIMIT_BYTES
 
 
 def _lib():
@@ -34,6 +35,7 @@ def _lib():
     lib.cg_chol_logdet.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_void_p]
     lib.cg_chol_logdet.restype = ctypes.c_int
+    lib.cg_chol_logdet_smem.argtypes = [ctypes.c_int]
     return lib
 
 

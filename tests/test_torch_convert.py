@@ -14,8 +14,12 @@ import coulombgas_tpu as cg
 from coulombgas_tpu_torch import config
 from coulombgas_tpu_torch.io import checkpoint, convert
 from coulombgas_tpu_torch.io.logging import ObservableLog, stderr_from_moments
-from coulombgas_tpu_torch.models.ferminet import FermiNet, FermiNetConfig
-from coulombgas_tpu_torch.models.transformer import Transformer, TransformerConfig
+from coulombgas_tpu_torch.models.ferminet import (
+    FermiNet, FermiNetConfig, init_ferminet_params,
+)
+from coulombgas_tpu_torch.models.transformer import (
+    Transformer, TransformerConfig, init_kv_cache, init_transformer_params,
+)
 from coulombgas_tpu_torch.sampling.autoregressive import make_autoregressive_sampler
 from coulombgas_tpu_torch.wavefunction.fast_logp import make_logp_fast
 
@@ -145,11 +149,27 @@ def test_device_policy():
             config.default_precision()
 
 
-def test_precision_override(monkeypatch):
-    monkeypatch.setenv("COULOMBGAS_PRECISION", "f32")
-    assert config.default_precision("cpu") == config.F32
-    monkeypatch.setenv("COULOMBGAS_PRECISION", "f64")
-    assert config.default_precision("cpu") == config.F64
+_FCFG, _VCFG = FermiNetConfig(1, 4, 4, 3.0), TransformerConfig(9, 1, 4, 2, 8)
+
+
+@pytest.mark.parametrize("build,probe", [
+    (lambda device=None: init_ferminet_params(
+        _FCFG, 2, torch.Generator().manual_seed(0), torch.float64, device),
+     lambda flow: flow.final.w),
+    (lambda device=None: init_transformer_params(
+        _VCFG, 2, torch.Generator().manual_seed(0), torch.float64, device),
+     lambda van: van.x1hat),
+    (lambda device=None: init_kv_cache(_VCFG, 2, 3, torch.float64, device),
+     lambda caches: caches[0]),
+], ids=["ferminet", "transformer", "kv_cache"])
+def test_model_builders_default_to_cuda(build, probe):
+    """The builders that choose a device choose CUDA unless told otherwise."""
+    assert probe(build("cpu")).device.type == "cpu"
+    if torch.cuda.is_available():
+        assert probe(build()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

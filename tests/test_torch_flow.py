@@ -113,22 +113,12 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors():
 def test_packed_parameters_follow_the_kernel_layout():
     for depth, dim, S, T in [(1, 2, 2, 6), (2, 2, 16, 16), (3, 3, 8, 12), (4, 2, 16, 8)]:
         flow = init_ferminet_params(FermiNetConfig(depth, S, T, 3.0), dim,
-                                    torch.Generator().manual_seed(0))
+                                    torch.Generator().manual_seed(0), device="cpu")
         packed = cuda_flow_jac.pack_flow_params(flow)
         assert packed.dtype == torch.float32
-        assert packed.numel() == cuda_flow_jac._param_count(depth, dim, S, T)
         assert packed.numel() == sum(p.numel() for p in flow.parameters())
         assert torch.equal(packed[: flow.sp[0].w.numel()], flow.sp[0].w.detach().reshape(-1))
         assert torch.equal(packed[-dim:], flow.final.b.detach())
-
-
-def test_flow_kernel_shared_memory_budget():
-    cfg = FermiNetConfig(2, 16, 16, 9.5)
-    assert cuda_flow_jac.flow_jac_fits(29, 2, cfg)
-    assert cuda_flow_jac.flow_jac_fits(57, 2, cfg)
-    assert cuda_flow_jac.flow_jac_smem_bytes(57, 2, cfg) > cuda_flow_jac.flow_jac_smem_bytes(29, 2, cfg)
-    assert not cuda_flow_jac.flow_jac_fits(2000, 2, cfg)
-    assert not cuda_flow_jac.flow_jac_fits(29, 2, FermiNetConfig(2, 64, 16, 9.5))
 
 
 def test_softplus_has_no_threshold_switch():

@@ -63,7 +63,7 @@ def test_decode_step_equals_full_forward():
     tokens = t(sp[si])
     with torch.no_grad():
         full = transformer_apply(van, tokens)
-        kc, vc = init_kv_cache(van.cfg, 3, 4, torch.float64)
+        kc, vc = init_kv_cache(van.cfg, 3, 4, torch.float64, "cpu")
         assert kc.shape == (3, 2, 4, 2, 4)
         for pos in range(3):
             logits, kc, vc = transformer_decode_step(van, tokens[:, pos], pos, kc, vc)
@@ -125,7 +125,7 @@ def test_sampler_draws_ordered_states_with_the_exact_frequencies():
 
 def test_init_transformer_params_shapes_and_scale():
     cfg = TransformerConfig(81, 2, 16, 4, 32)
-    van = init_transformer_params(cfg, 2, torch.Generator().manual_seed(0), torch.float64)
+    van = init_transformer_params(cfg, 2, torch.Generator().manual_seed(0), torch.float64, "cpu")
     assert sum(p.numel() for p in van.parameters()) == 5826
     assert float(van.embed.b.detach().abs().max()) == 0.0
     assert 0 < float(van.layers[0].attn.q.w.detach().std()) < 0.1
