@@ -11,10 +11,15 @@ exit code:
   kernels  each hand-written kernel against its plain PyTorch version at the
            main path's shapes (n = 29, dim = 2, depth 2, widths 16,
            batch 2048): error in f32 and against f64, a singular input, a
-           ragged batch, and timings;
-  train    three training epochs through main_torch.py's own functions at the
+           ragged batch, and timings; the two flow kernels (carried state and
+           depth-2 closure) also against each other;
+  train    two Adam epochs through main_torch.py's own functions at the
            default width, with the launch counters read around them, then one
-           sample step on the route that uses the third kernel.
+           sample step on the route that uses the third kernel;
+  train_sr three epochs of stochastic reconfiguration (--sr --sr_solver host64
+           --mc_d2_kernel --acc_d2_kernel) at the same width, counters set to
+           zero before and read after, then the plain solver's step on the
+           same accumulators beside host64's.
 
 The line before the last lists every kernel with its launches on the main
 path, its error, its time and its bound.  The last line is
@@ -37,7 +42,10 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
 
 from coulombgas_tpu_torch.models.ferminet import FermiNetConfig, init_ferminet_params
-from coulombgas_tpu_torch.ops import _build, cuda_flow_jac, cuda_fused_logp, cuda_logdet
+from coulombgas_tpu_torch.io.convert import ravel_params
+from coulombgas_tpu_torch.ops import (
+    _build, cuda_flow_d2, cuda_flow_jac, cuda_fused_logp, cuda_logdet,
+)
 from coulombgas_tpu_torch.ops.logdet import planewave_gram_embed
 from coulombgas_tpu_torch.physics.orbitals import sp_orbitals, twist_sort
 from coulombgas_tpu_torch.sampling.mcmc import mcmc
@@ -67,6 +75,11 @@ TOL_LOGP = 5e-3  # held by the 99th percentile over the batch
 # it, and eps_f32 * cond^2 ~ 1e-2 — the plain f32 version strays from f64 by
 # as much.  So the maximum gets ten times the percentile's tolerance.
 TOL_LOGP_MAX = 5e-2
+# The flow's coordinate Laplacian sums nd second derivatives per entry, some
+# with 1 / d^3 of a pair distance; values are below 1.  J's tolerance, twenty
+# times tighter than the bound the reference's own tests give its TPU kernel
+# in interpret mode (2e-4).
+TOL_LAP = 1e-5
 
 
 def emit(obj):
@@ -179,6 +192,134 @@ def flow_flops(B, n, dim, depth, S, T):
     return B * fl
 
 
+def d2_flops(B, n, dim, S, T, lap: bool):
+    """f32 operations of the depth-2 closure as the function needs them (the
+    pair blocks A0 have 3 non-zero entries per coordinate), and beside them
+    the transcendental calls (sincos, exp, log1p, sqrt, division by a sum),
+    which the multiply-add count leaves out."""
+    C0 = 2 * dim + 1
+    pair = n * n
+    fl = pair * (2 * C0 * T + dim * (6 * T + T))          # tp layer: pre, A0 wt, A1
+    fl += pair * (C0 + 3 * dim + T + dim * T)             # sums over j
+    fl += n * (2 * C0 * S + dim * 7 * S)                  # layer 0, D
+    fl += n * 2 * (2 * S + T) * S + 2 * n * S * dim       # final layer, u
+    fl += n * dim * 2 * S * (2 * S + T + C0) + n * dim * dim * 2 * (S + T)  # M R N K, diagonal
+    fl += pair * dim * S * 8                              # G
+    fl += pair * dim * dim * 2 * (3 + T + S)              # J blocks
+    trans = pair * (2 * dim + 1 + 3 * T)                  # sincos, sqrt; exp, log1p, 1/(1+e)
+    trans += n * 5 * S
+    if lap:
+        fl += pair * (dim * S * 8 + T * (2 * C0 + 6))     # sq0 pair part, Ltp1
+        fl += pair * dim * S * (6 + 2 * T + 4)            # U and the squared sums
+        fl += n * dim * 2 * S * (2 * S + T) + n * 2 * (2 * S + T) * S + 2 * n * S * dim
+        trans += pair * dim
+    return B * fl, B * trans
+
+
+def kernels_d2(L, cfg, flow, flow64, x, u1, J1):
+    """K5 and K6 at the main path's shapes; ``u1, J1`` are the carried-state
+    flow kernel's results on the same walkers."""
+    nd = N * DIM
+    d2 = cuda_flow_d2
+    u, J = d2.flow_u_jac_d2_cuda(flow, x)
+    ul, Jl, lap = d2.flow_u_jac_lap_d2_cuda(flow, x)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        u32, J32, lap32 = d2.flow_u_jac_lap_d2_plain(flow, x)
+        u64, J64, lap64 = d2.flow_u_jac_lap_d2_plain(flow64, x.double())
+    errs = {}
+    for name, got in (("flow_u_jac_d2", (u, J)), ("flow_u_jac_lap_d2", (ul, Jl, lap))):
+        e32 = [max_err(a, b) for a, b in zip(got, (u32, J32, lap32))]
+        e64 = [max_err(a, b) for a, b in zip(got, (u64, J64, lap64))]
+        for e, ref in ((e32, "f32"), (e64, "f64")):
+            check(e[0] <= TOL_U and e[1] <= TOL_UJ and (len(e) < 3 or e[2] <= TOL_LAP),
+                  "%s vs plain %s: u, J, lap %s" % (name, ref, e))
+        errs[name] = (e32, e64)
+    # the closure equals the carried form to roundoff: two hand-written kernels
+    e_k1 = (max_err(u, u1), max_err(J, J1))
+    check(e_k1[0] <= TOL_U and e_k1[1] <= TOL_UJ,
+          "flow_u_jac_d2 vs flow_u_jac (carried state): u %g J %g" % e_k1)
+    # coincident particles: zero pair distance, the guarded 1 / d and 1 / d^3
+    xs = x[:64].clone()
+    xs[:, 1] = xs[:, 0]
+    got = d2.flow_u_jac_lap_d2_cuda(flow, xs)
+    got5 = d2.flow_u_jac_d2_cuda(flow, xs)
+    with torch.no_grad():
+        ref = d2.flow_u_jac_lap_d2_plain(flow, xs)
+    check(all(bool(torch.isfinite(t).all()) for t in got + got5),
+          "flow d2 kernels: non-finite output for coincident particles")
+    e_co = [max_err(a, b) for a, b in zip(got, ref)] + [max_err(a, b) for a, b in zip(got5, ref)]
+    check(e_co[0] <= TOL_U and e_co[1] <= TOL_UJ and e_co[2] <= TOL_LAP
+          and e_co[3] <= TOL_U and e_co[4] <= TOL_UJ,
+          "flow d2 kernels, coincident particles vs plain: %s" % e_co)
+    # a ragged batch reproduces the full batch bit for bit
+    ur, Jr = d2.flow_u_jac_d2_cuda(flow, x[:BATCH - 1])
+    ulr, Jlr, lapr = d2.flow_u_jac_lap_d2_cuda(flow, x[:BATCH - 1])
+    check(torch.equal(ur, u[:-1]) and torch.equal(Jr, J[:-1]), "flow_u_jac_d2: ragged batch differs")
+    check(torch.equal(ulr, ul[:-1]) and torch.equal(Jlr, Jl[:-1]) and torch.equal(lapr, lap[:-1]),
+          "flow_u_jac_lap_d2: ragged batch differs")
+    # other sizes: n = 57 (beyond the carried-state kernel's single-kernel
+    # range on the TPU), dim 3, uneven widths
+    for dim, S, T, n, B in [(2, 16, 16, 57, 256), (3, 16, 16, 9, 65), (2, 8, 12, 13, 65),
+                            (3, 8, 12, 7, 33)]:
+        Lg = float(n) ** (1 / dim)
+        cg = FermiNetConfig(2, S, T, Lg, 0.2)
+        fg = init_ferminet_params(cg, dim, torch.Generator().manual_seed(n), torch.float32, DEV)
+        xg = Lg * torch.rand(B, n, dim, device=DEV, generator=torch.Generator(DEV).manual_seed(n))
+        got = d2.flow_u_jac_lap_d2_cuda(fg, xg)
+        got5 = d2.flow_u_jac_d2_cuda(fg, xg)
+        with torch.no_grad():
+            ref = d2.flow_u_jac_lap_d2_plain(fg, xg)
+        e = [max_err(a, b) for a, b in zip(got, ref)] + [max_err(a, b) for a, b in zip(got5, ref)]
+        check(e[0] <= TOL_U and e[1] <= TOL_UJ and e[2] <= TOL_LAP and e[3] <= TOL_U
+              and e[4] <= TOL_UJ,
+              "flow d2 kernels (n %d, dim %d, widths %d/%d) vs plain: %s" % (n, dim, S, T, e))
+    # the shared-memory budget, as the built library states it
+    big = FermiNetConfig(DEPTH, SPSIZE, TPSIZE, L)
+    check(all(d2.flow_d2_fits(n, DIM, big, lap) for n in (N, 57) for lap in (False, True))
+          and d2.flow_d2_smem_bytes(57, DIM, big, True) > d2.flow_d2_smem_bytes(57, DIM, big)
+          > d2.flow_d2_smem_bytes(N, DIM, big)
+          and not d2.flow_d2_fits(100, DIM, big) and not d2.flow_d2_fits(N, 4, big)
+          and not d2.flow_d2_fits(N, DIM, FermiNetConfig(3, SPSIZE, TPSIZE, L)),
+          "flow d2 kernels: shared-memory budget")
+    try:  # a requested kernel launches or raises: depth 3 is refused
+        d2.flow_u_jac_d2_cuda(init_ferminet_params(
+            FermiNetConfig(3, SPSIZE, TPSIZE, L), DIM, None, torch.float32, DEV), x[:4])
+        check(False, "flow_u_jac_d2 accepted a depth-3 flow")
+    except ValueError:
+        pass
+    rows = []
+    nparams = cuda_flow_jac.pack_flow_params(flow).numel()
+    for name, fn, plain, lap_on, line in (
+        ("flow_u_jac_d2", d2.flow_u_jac_d2_cuda, d2.flow_u_jac_d2_plain, False, 1265),
+        ("flow_u_jac_lap_d2", d2.flow_u_jac_lap_d2_cuda, d2.flow_u_jac_lap_d2_plain, True, 1290),
+    ):
+        with torch.no_grad():
+            ms = time_ms(lambda: fn(flow, x), 20)
+            plain_ms = time_ms(lambda: plain(flow, x), 5)
+        nbytes = 4 * (2 * BATCH * nd + BATCH * nd * nd + nparams + (BATCH * nd if lap_on else 0))
+        flops, trans = d2_flops(BATCH, N, DIM, SPSIZE, TPSIZE, lap_on)
+        t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+        e32, e64 = errs[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "coulombgas_tpu_torch/csrc/flow_d2.cu",
+            "replaces": "coulombgas_tpu/ops/pallas_flow_jac.py:%d" % line,
+            "max_abs_err": max(e32[:2]), "max_abs_err_f64": max(e64[:2]),
+            "tolerance": TOL_U, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": None, "f32_operations": flops, "transcendentals": trans,
+            "bytes": nbytes,
+        })
+        if lap_on:
+            rows[-1].update({"lap_abs_err": e32[2], "lap_abs_err_f64": e64[2],
+                             "lap_max_abs": float(lap64.abs().max()), "tolerance_lap": TOL_LAP})
+        else:
+            rows[-1].update({"abs_err_vs_flow_u_jac": max(e_k1)})
+        rows[-1]["coincident_abs_err"] = max(e_co)
+    return rows
+
+
 def phase_kernels():
     L, cfg, flow, x, kvec, tw, si = make_inputs()
     flow64 = init_ferminet_params(cfg, DIM, None, torch.float64, DEV)
@@ -245,6 +386,10 @@ def phase_kernels():
         "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
         "library_ms": None,
     })
+
+
+    # ---- K5 / K6 flow_u_jac_d2, flow_u_jac_lap_d2: the depth-2 closure ---------
+    rows += kernels_d2(L, cfg, flow, flow64, x, u, J)
 
     # ---- K2 fused_logp ------------------------------------------------------
     lp = cuda_fused_logp.fused_logp_cuda(u, kvec, J, L)
@@ -359,20 +504,22 @@ def phase_kernels():
 
 def reset_counts():
     cuda_flow_jac.launches = cuda_fused_logp.launches = cuda_logdet.launches = 0
+    for name in cuda_flow_d2.launches:
+        cuda_flow_d2.launches[name] = 0
 
 
 def read_counts():
-    return {"flow_u_jac": cuda_flow_jac.launches, "fused_logp": cuda_fused_logp.launches,
-            "chol_logdet": cuda_logdet.launches}
+    return dict({"flow_u_jac": cuda_flow_jac.launches, "fused_logp": cuda_fused_logp.launches,
+                 "chol_logdet": cuda_logdet.launches}, **cuda_flow_d2.launches)
 
 
 def phase_train():
-    """Three epochs of the trainer at the default width, then the third route."""
+    """Two Adam epochs of the trainer at the default width, then the third route."""
     import tempfile
 
     import main_torch
 
-    mc_therm, epochs = 2, 3
+    mc_therm, epochs = 2, 2
     with tempfile.TemporaryDirectory() as out:
         args = main_torch.parse_args([
             "--folder", "data/interacting/", "--hutchinson", "--mc_therm", str(mc_therm),
@@ -395,6 +542,8 @@ def phase_train():
     # once for the Hutchinson term and once for log Psi, every epoch
     check(counts["chol_logdet"] == 2 * epochs,
           "chol_logdet launches %d on the main path, expected %d" % (counts["chol_logdet"], 2 * epochs))
+    check(counts["flow_u_jac_d2"] == 0 and counts["flow_u_jac_lap_d2"] == 0,
+          "the Adam path launched a depth-2 closure kernel: %s" % counts)
     check(run["params_changed"], "parameters did not change")
 
     # One sample step on the route without the fused tail: the stacked Grams
@@ -420,15 +569,120 @@ def phase_train():
     return counts
 
 
+def check_scores(tr, si, walkers: int = 32, rows: int = 2):
+    """The quantum score matrix on the card (f32, ``vmap(jacrev)``) against
+    the same on the CPU in f64, and that against per-walker autograd — an
+    independent route to the same rows — on thermalised walkers."""
+    import copy
+
+    from coulombgas_tpu_torch.io.convert import ravel_params as ravel
+    from coulombgas_tpu_torch.models.ferminet_jac import ferminet_apply_and_jac
+    from coulombgas_tpu_torch.wavefunction.logpsi import make_logpsi_fast, make_quantum_score
+
+    logpsi = make_logpsi_fast(ferminet_apply_and_jac, tr.sp_indices, tr.L)
+    score = make_quantum_score(logpsi)
+    x, s = tr.x[:walkers], si[:walkers]
+    S32 = score(x, tr.flow, s).cpu().to(torch.complex128)
+    flow64 = copy.deepcopy(tr.flow).to("cpu", torch.float64)
+    x64, s64 = x.cpu().double(), s.cpu()
+    S64 = score(x64, flow64, s64)
+    e_rows = 0.0
+    for b in range(rows):
+        lp = logpsi(x64[b:b + 1], flow64, s64[b:b + 1])[0]
+        parts = [ravel(flow64, list(torch.autograd.grad(lp[c], list(flow64.parameters()),
+                                                        retain_graph=True))) for c in (0, 1)]
+        e_rows = max(e_rows, float((torch.complex(*parts) - S64[b]).abs().max()))
+    rel = (S32 - S64).abs().amax(dim=1) / S64.abs().amax(dim=1)
+    out = {"phase": "train_sr", "quantum_score": "f32 on the card vs f64 on the CPU",
+           "walkers": walkers, "rel_err_median": float(rel.median()),
+           "rel_err_p90": float(rel.quantile(0.9)), "rel_err_max": float(rel.max()),
+           "rows_vs_per_walker_autograd_f64": e_rows}
+    emit(out)
+    check(e_rows <= 1e-8, "quantum score rows differ from per-walker autograd by %g" % e_rows)
+    check(out["rel_err_median"] <= 1e-3,
+          "quantum score f32 vs f64: median relative error %g" % out["rel_err_median"])
+
+
+def phase_train_sr():
+    """Three epochs of stochastic reconfiguration on the depth-2 closure
+    kernels at the default width, through main_torch.py's own functions."""
+    import tempfile
+
+    import main_torch
+    from coulombgas_tpu_torch.optim.host_sr import host_hybrid_apply
+    from coulombgas_tpu_torch.train.train import init_accumulators
+
+    mc_therm, epochs = 2, 3
+    with tempfile.TemporaryDirectory() as out:
+        args = main_torch.parse_args([
+            "--folder", "data/interacting/", "--sr", "--sr_solver", "host64", "--hutchinson",
+            "--mc_d2_kernel", "--acc_d2_kernel", "--mc_therm", str(mc_therm),
+            "--acc_steps", "1", "--epoch", str(epochs), "--ckpt_every", "1000000",
+        ])
+        check((args.n, args.dim, args.Emax, args.batch, args.mc_steps, args.depth)
+              == (N, DIM, EMAX, BATCH, 50, DEPTH), "main_torch defaults are not the main path's width")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        run = main_torch.train(args, out_folder=out)
+        counts = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for row in run["epochs"]:
+        emit(dict({"phase": "train_sr"}, **row))
+        vals = [row[k] for k in ("F", "E", "K", "V", "S", "accept_rate")]
+        check(all(math.isfinite(v) for v in vals), "non-finite observable in SR epoch %d" % row["epoch"])
+        check(0.05 < row["accept_rate"] < 0.95, "accept rate %g out of (0.05, 0.95)" % row["accept_rate"])
+        check(0 < row["scale_van"] <= 1 and 0 < row["scale_flow"] <= 1,
+              "SR trust-region scales (%g, %g) out of (0, 1]" % (row["scale_van"], row["scale_flow"]))
+        check(row["gnorm_van"] > 0 and row["gnorm_flow"] > 0,
+              "SR curvature g^T F^-1 g (%g, %g) not positive" % (row["gnorm_van"], row["gnorm_flow"]))
+    # every Metropolis logp goes flow_u_jac_d2 -> fused_logp; accumulate takes the
+    # primal flow from flow_u_jac_lap_d2, and log det(J J^T) from chol_logdet
+    # twice: in the Hutchinson term and in the per-sample scores of log Psi
+    expect = 51 * (mc_therm + epochs)
+    check(counts["flow_u_jac_d2"] == expect and counts["fused_logp"] == expect
+          and counts["flow_u_jac"] == 0,
+          "SR path launch counters %s, expected %d for flow_u_jac_d2 and fused_logp, 0 for "
+          "flow_u_jac" % (counts, expect))
+    check(counts["flow_u_jac_lap_d2"] == epochs and counts["chol_logdet"] == 2 * epochs,
+          "SR path launch counters %s, expected %d for flow_u_jac_lap_d2 and %d for chol_logdet"
+          % (counts, epochs, 2 * epochs))
+    tr = run["trainer"]
+    params = [*tr.van.parameters(), *tr.flow.parameters()]
+    check(run["params_changed"] and all(bool(torch.isfinite(p).all()) for p in params),
+          "SR: parameters did not change or are not finite")
+
+    # The plain (f32 LU) solver's step beside host64's on the same accumulators.
+    si, tr.x, _ = tr.sample_step(tr.van, tr.flow, tr.x, tr.generator)
+    check_scores(tr, si)
+    acc = tr.accumulate(tr.van, tr.flow, si, tr.x, tr.generator,
+                        init_accumulators(tr.van, tr.flow, sr=True))
+    u64 = host_hybrid_apply(acc, 1, args.damping, args.max_norm, van=tr.van, flow=tr.flow)
+    before = [ravel_params(tr.van).double(), ravel_params(tr.flow).double()]
+    data = tr.apply_update(tr.van, tr.flow, None, acc)
+    steps = [ravel_params(m).double() - b for m, b in zip((tr.van, tr.flow), before)]
+    rel = [float((s - h).norm() / h.norm()) for s, h in zip(steps, u64[:2])]
+    emit({"phase": "train_sr", "solver_comparison": "plain (f32 LU) vs host64 (f64 Cholesky)",
+          "rel_step_diff_van": rel[0], "rel_step_diff_flow": rel[1],
+          "host64": u64[3], "plain": {k[5:]: float(v) for k, v in data.items() if k.startswith("diag_")},
+          "p_van": before[0].numel(), "p_flow": before[1].numel(),
+          "peak_GiB": round(peak_gib, 3), "launches_sr_path": counts})
+    check(all(math.isfinite(r) for r in rel), "solver comparison is not finite")
+    return counts
+
+
 def main():
     t0 = time.time()
     smi = phase_device()
     phase_build()
     rows = phase_kernels()
     counts = phase_train()
+    counts_sr = phase_train_sr()
     for row in rows:
-        row["launches"] = counts[row["name"]]
-        check(row["launches"] > 0, "kernel %s was not launched on the main path" % row["name"])
+        # the depth-2 closure kernels run on the SR path only, the carried-state
+        # flow kernel on the Adam path only
+        row["launches"] = counts[row["name"]] or counts_sr[row["name"]]
+        row["launches_sr_path"] = counts_sr[row["name"]]
+        check(row["launches"] > 0, "kernel %s was not launched on a main path" % row["name"])
     emit({"phase": "done", "seconds": round(time.time() - t0, 1)})
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -17,7 +17,8 @@ from ..models.transformer import Transformer
 from .checkpoint import load_data
 
 __all__ = ["flatten_tree", "unflatten_tree", "van_from_numpy", "flow_from_numpy",
-           "van_to_numpy", "flow_to_numpy", "load_reference_checkpoint"]
+           "van_to_numpy", "flow_to_numpy", "load_reference_checkpoint",
+           "ravel_order", "ravel_named", "ravel_params", "unravel_like"]
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
@@ -111,3 +112,52 @@ def load_reference_checkpoint(path: str) -> dict:
     """
     ckpt = load_data(path)
     return {k: ckpt[k] for k in ("x", "params_van", "params_flow")}
+
+
+# ---- the raveled parameter vector ------------------------------------------------
+#
+# The JAX package flattens a parameter pytree with ``ravel_pytree``: dictionary
+# keys sorted, list entries in order, each leaf row-major.  For the flow that is
+# final.b, final.w, sp.0.b, sp.0.w, ..., tp.0.b, tp.0.w — not the order of
+# ``module.parameters()`` (sp.0.w, sp.0.b, ..., final.b).  Score matrices,
+# Fisher matrices and raveled updates of the port use the JAX order, so that
+# column j means the same parameter in both packages.
+
+
+def ravel_order(module) -> list[str]:
+    """Parameter names of ``module`` in the order ``ravel_pytree`` gives the
+    corresponding pytree's leaves."""
+    def key(name):
+        return [(0, int(p), "") if p.isdigit() else (1, 0, p) for p in name.split(".")]
+    return sorted((k for k, _ in module.named_parameters()), key=key)
+
+
+def ravel_named(named: dict, order, batch_dims: int = 0):
+    """Concatenate ``named[k]`` for k in ``order``, each flattened after its
+    first ``batch_dims`` dimensions: the raveled vector ``(P,)`` or, with
+    ``batch_dims = 1``, the matrix ``(B, P)``."""
+    return torch.cat([named[k].reshape(*named[k].shape[:batch_dims], -1) for k in order],
+                     dim=-1)
+
+
+def ravel_params(module, tensors=None):
+    """Raveled vector of ``tensors`` (a list in the order of
+    ``module.parameters()``; default: the parameters themselves)."""
+    names = [k for k, _ in module.named_parameters()]
+    if tensors is None:
+        tensors = [p.detach() for p in module.parameters()]
+    return ravel_named(dict(zip(names, tensors)), ravel_order(module))
+
+
+def unravel_like(vec, module) -> list:
+    """Inverse of ``ravel_params``: cut a raveled vector into tensors shaped as
+    the parameters, returned in the order of ``module.parameters()``."""
+    shapes = {k: p.shape for k, p in module.named_parameters()}
+    out, at = {}, 0
+    for k in ravel_order(module):
+        size = shapes[k].numel()
+        out[k] = vec[at:at + size].reshape(shapes[k])
+        at += size
+    if at != vec.numel():
+        raise ValueError("raveled vector has %d entries, the module %d" % (vec.numel(), at))
+    return [out[k] for k in shapes]

@@ -16,7 +16,8 @@ The flow's structure closes the Jacobian analytically:
 Counterpart of ``coulombgas_tpu/models/ferminet_jac.py`` with the batch
 written out: x is ``(..., n, dim)``, J is ``(..., nd, nd)`` with rows (i, b)
 and columns (l, a).  These are also the plain versions of the flow kernel in
-``ops/cuda_flow_jac.py``.  The depth-2 closed forms are not ported yet.
+``ops/cuda_flow_jac.py``; the depth-2 closed forms ``*_d2`` are the plain
+versions of the closure kernels in ``ops/cuda_flow_d2.py``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ import torch
 
 from .ferminet import FermiNet, _sp_feature, softplus
 
-__all__ = ["ferminet_apply_and_jac", "ferminet_apply_jac_lap", "select_flow_jac"]
+__all__ = ["ferminet_apply_and_jac", "ferminet_apply_jac_lap",
+           "ferminet_apply_and_jac_d2", "ferminet_apply_jac_lap_d2",
+           "select_flow_jac"]
 
 
 def select_flow_jac(flow_cfg, impl: str = "auto"):
@@ -34,13 +37,15 @@ def select_flow_jac(flow_cfg, impl: str = "auto"):
     Returns ``(flow_jac, flow_jac_lap)`` of signature ``f(flow, x)``.
     ``"carried"`` is the layer-recursive form carrying the dense
     (n, n, dim, S) single-particle Jacobian state (any depth); ``"auto"``
-    resolves to it.  ``"d2"`` (the depth-2 closed form) is not ported yet.
+    resolves to it.  ``"d2"`` is the depth-2 closed form that never builds
+    that state (exact for ``flow_cfg.depth == 2`` only).
     """
     if impl == "auto":
         impl = "carried"
     if impl == "d2":
-        raise NotImplementedError(
-            "flow_jac 'd2' (depth-2 closed form) is not ported yet")
+        if flow_cfg.depth != 2:
+            raise ValueError("flow_jac 'd2' requires depth == 2 (got %d)" % flow_cfg.depth)
+        return ferminet_apply_and_jac_d2, ferminet_apply_jac_lap_d2
     if impl == "carried":
         return ferminet_apply_and_jac, ferminet_apply_jac_lap
     raise ValueError("unknown flow_jac impl: %r" % (impl,))
@@ -215,3 +220,117 @@ def ferminet_apply_jac_lap(flow: FermiNet, x):
     J = _assemble_jac(Jsp, flow.final.w, n, dim)
     lap_z = Lsp @ flow.final.w  # x-term is linear
     return z, J, lap_z.reshape(*lap_z.shape[:-2], n * dim)
+
+
+def _d2_closure(flow: FermiNet, x, with_lap: bool):
+    """Depth-2 flow, Jacobian and (optionally) Laplacian in closed structured
+    form — no carried (n, n, dim, S) state.
+
+    After layer 0 the single-particle Jacobian is
+
+        Jsp1_{il} = delta_il D_i + P_{il},   P_{il} = -(1/n) sig0_i * (A0_{il} W3_0)
+
+    and the final layer only ever contracts it with weight matrices and
+    row-wise sigmoid factors, so the coordinate Jacobian reduces to
+
+        J_{il} = delta_il (I + D_i M_i - SumA1_i N_i)        [diagonal blocks]
+               + A0_{il} K_i + A1_{il} N_i                   [pair terms]
+               + G_l R_i                                     [rank-S mean term]
+
+    with per-row matrices M_i, K_i, N_i, R_i and one (n, dim, S) mean
+    accumulator G.  For the Laplacian the squared-first-derivative sums of the
+    softplus chain rule decompose over the same blocks,
+
+        JfW1_{il} = delta_il T_i + U_il + V_l
+
+    (T diagonal, U pair-transient, V mean).
+    """
+    if flow.cfg.depth != 2:
+        raise ValueError("the structured closure is specialized to depth 2 (got %d)"
+                         % flow.cfg.depth)
+    n, dim = x.shape[-2:]
+    nd = n * dim
+    L = flow.cfg.L
+
+    tp0, A0 = _pair_feature_grads(x, L)  # (..., n,n,C0), (..., n,n,dim,C0)
+
+    # ---- layer 0 (the sp stream enters as zeros of width dim) -----------------
+    w3_0 = flow.sp[0].w[2 * dim:]  # the only block reached by non-zero features
+    pre0 = tp0.mean(dim=-2) @ w3_0 + flow.sp[0].b  # (..., n, S)
+    sig0 = torch.sigmoid(pre0)
+    sp1 = softplus(pre0)
+    AW0 = A0 @ w3_0                              # (..., n, n, dim, S) transient
+    sumAW0 = AW0.sum(dim=-3)                     # (..., n, dim, S)
+    D = sig0[..., :, None, :] * sumAW0 / n       # diagonal block of Jsp1
+
+    # ---- pair-local tp layer ----------------------------------------------
+    wt = flow.tp[0].w
+    pre_tp = flow.tp[0](tp0)
+    sigt = torch.sigmoid(pre_tp)
+    tp1 = softplus(pre_tp)
+    AWt = A0 @ wt
+    A1 = sigt[..., None, :] * AWt                # (..., n, n, dim, C1)
+
+    # ---- final sp layer ------------------------------------------------------
+    S = sp1.shape[-1]
+    w1f = flow.sp[1].w
+    W1, W2, W3 = w1f[:S], w1f[S:2 * S], w1f[2 * S:]
+    pre1 = flow.sp[1](_sp_feature(sp1, tp1))
+    sig1 = torch.sigmoid(pre1)                   # (..., n, S')
+    sp_fin = sp1 + softplus(pre1)
+    wf = flow.final.w
+    z = x + flow.final(sp_fin)
+
+    # ---- per-row contraction matrices ------------------------------------
+    M = wf + torch.einsum("st,...it,tb->...isb", W1, sig1, wf)       # (I + W1 diag(sig1)) wf
+    K = -torch.einsum("cs,...is,...isb->...icb", w3_0, sig0, M) / n  # (..., n, C0, dim)
+    N = -torch.einsum("ct,...it,tb->...icb", W3, sig1, wf) / n       # (..., n, C1, dim)
+    R = torch.einsum("st,...it,tb->...isb", W2, sig1, wf) / n        # (..., n, S, dim)
+
+    # ---- mean accumulator G_l = sum_k Jsp1_{kl} = D_l + sum_k P_{kl} ------
+    SP = -torch.einsum("...klds,...ks->...lds", AW0, sig0) / n
+    G = D + SP                                   # (..., n, dim, S)
+
+    # ---- assemble J ---------------------------------------------------------
+    sumA1 = A1.sum(dim=-3)
+    Jblk = (torch.einsum("...ildc,...icb->...ibld", A0, K)
+            + torch.einsum("...ildc,...icb->...ibld", A1, N)
+            + torch.einsum("...lds,...isb->...ibld", G, R))
+    diag = (torch.einsum("...ids,...isb->...ibd", D, M)
+            - torch.einsum("...idc,...icb->...ibd", sumA1, N))
+    eye_n = torch.eye(n, dtype=x.dtype, device=x.device)
+    Jblk = Jblk + torch.einsum("il,...ibd->...ibld", eye_n, diag)
+    J = Jblk.reshape(*x.shape[:-2], nd, nd) + torch.eye(nd, dtype=x.dtype, device=x.device)
+    if not with_lap:
+        return z, J
+
+    # ---- Laplacian -----------------------------------------------------------
+    Ltp0 = 2.0 * _pair_feature_lap(x, L)         # (..., n, n, C0)
+    sq0 = ((sumAW0**2).sum(dim=-2) + (AW0**2).sum(dim=(-3, -2))) / n**2  # (..., n, S)
+    Lsp1 = sig0 * (Ltp0.mean(dim=-2) @ w3_0) + sig0 * (1 - sig0) * sq0
+    Ltp1 = sigt * (Ltp0 @ wt) + sigt * (1 - sigt) * (2.0 * (AWt**2).sum(dim=-2))
+
+    T = D @ W1 + (sumA1 @ W3) / n                # (..., n, dim, S')
+    # U_il = P_il W1 - (1/n) A1_il W3
+    U = -((sig0[..., :, None, None, :] * AW0) @ W1 + A1 @ W3) / n
+    V = (G @ W2) / n                             # indexed by l; V_i is its row i
+    sq1 = (((T + V) ** 2 - V**2).sum(dim=-2)                       # diagonal l = i part
+           + (U**2).sum(dim=(-3, -2))                              # pair part
+           + 2.0 * torch.einsum("...ilds,...lds->...is", U, V)     # cross term
+           + (V**2).sum(dim=(-3, -2))[..., None, :])               # sum_l V_l^2
+    Lsp_fin = Lsp1 + sig1 * (_sp_feature(Lsp1, Ltp1) @ w1f) + sig1 * (1 - sig1) * sq1
+    lap_z = Lsp_fin @ wf
+    return z, J, lap_z.reshape(*lap_z.shape[:-2], nd)
+
+
+def ferminet_apply_and_jac_d2(flow: FermiNet, x):
+    """Depth-2 forward + Jacobian in closed form: x (..., n, dim) ->
+    (z, J (..., nd, nd)).  Equal (to roundoff) to ``ferminet_apply_and_jac``."""
+    return _d2_closure(flow, x, with_lap=False)
+
+
+def ferminet_apply_jac_lap_d2(flow: FermiNet, x):
+    """Depth-2 forward + Jacobian + coordinate Laplacian in closed form:
+    (z, J (..., nd, nd), lap_z (..., nd)).  Equal (to roundoff) to
+    ``ferminet_apply_jac_lap``."""
+    return _d2_closure(flow, x, with_lap=True)

@@ -101,13 +101,20 @@ def gj_inverse_single(A):
 class _SpdInverse(torch.autograd.Function):
     """Inverse of real SPD matrices with the closed-form derivative
     d(A^-1) = -A^-1 dA A^-1 instead of AD through the m elimination steps
-    (which would keep O(m) full-matrix residuals per walker)."""
+    (which would keep O(m) full-matrix residuals per walker).
+
+    Written with ``setup_context`` and a ``vmap`` rule so that
+    ``torch.func.vmap(torch.func.jacrev(...))`` — the per-sample scores of
+    stochastic reconfiguration — can pass through it: the function takes any
+    leading batch dimensions, so the rule moves the mapped one to the front."""
 
     @staticmethod
-    def forward(ctx, A):
-        inv = gj_inverse_single(A)
-        ctx.save_for_backward(inv)
-        return inv
+    def forward(A):
+        return gj_inverse_single(A)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, grad):
@@ -115,20 +122,32 @@ class _SpdInverse(torch.autograd.Function):
         invT = inv.transpose(-1, -2)
         return -(invT @ grad @ invT)
 
+    @staticmethod
+    def vmap(info, in_dims, A):
+        return _SpdInverse.apply(A.movedim(in_dims[0], 0)), 0
+
 
 class _LogdetSpd(torch.autograd.Function):
     """Primal: the pivot-free Cholesky — no graph is kept of it, so on the GPU
-    it is the kernel behind ``chol_logdet``.  Derivative: A^-1 (A symmetric)."""
+    it is the kernel behind ``chol_logdet``.  Derivative: A^-1 (A symmetric).
+    The ``vmap`` rule hands the kernel the physically batched tensor."""
 
     @staticmethod
-    def forward(ctx, A):
-        ctx.save_for_backward(A)
+    def forward(A):
         return chol_logdet(A.reshape(-1, *A.shape[-2:])).reshape(A.shape[:-2])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
 
     @staticmethod
     def backward(ctx, grad):
         (A,) = ctx.saved_tensors
         return grad[..., None, None] * _SpdInverse.apply(A)
+
+    @staticmethod
+    def vmap(info, in_dims, A):
+        return _LogdetSpd.apply(A.movedim(in_dims[0], 0)), 0
 
 
 def logdet_spd_single(A):

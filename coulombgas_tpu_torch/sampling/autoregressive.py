@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..io.convert import ravel_named, ravel_order
+from ..models.per_sample import per_sample_jacobian
 from ..models.transformer import (
     Transformer,
     init_kv_cache,
@@ -22,7 +24,7 @@ from ..models.transformer import (
     transformer_decode_step,
 )
 
-__all__ = ["make_autoregressive_sampler"]
+__all__ = ["make_autoregressive_sampler", "make_classical_score"]
 
 _NEG_INF = -1e30
 
@@ -103,3 +105,16 @@ def make_autoregressive_sampler(sp_indices, n: int, num_states: int,
     if mask_fn:
         return _mask, sampler, log_prob
     return sampler, log_prob
+
+
+def make_classical_score(log_prob):
+    """Per-sample scores d log p / d params of the VAN, for the SR Fisher.
+
+    Returns ``score(van, state_idx (B, n)) -> S_c (B, P_van)``, raveled in
+    the JAX package's parameter order (``io.convert.ravel_order``)."""
+
+    def classical_score(van, state_idx):
+        jac = per_sample_jacobian(log_prob, van, state_idx)
+        return ravel_named(jac, ravel_order(van), batch_dims=1)
+
+    return classical_score

@@ -1,26 +1,31 @@
 """Training steps: joint sampling, gradient accumulation, update.
 
-Counterpart of ``coulombgas_tpu/train/train.py`` on the plain-optimizer
-branch (no stochastic reconfiguration yet):
+Counterpart of ``coulombgas_tpu/train/train.py``:
 
   * ``sample_step``   — VAN occupation draws + Metropolis coordinates,
-  * ``accumulate``    — observables, REINFORCE gradients and mean scores,
+  * ``accumulate``    — observables, REINFORCE gradients and mean scores
+                        (+ Fisher terms under stochastic reconfiguration),
                         summed into an explicit accumulator,
   * ``apply_update``  — accumulator normalization, baseline correction, and
-                        the optimizer step.
+                        the optimizer step (a ``torch.optim`` optimizer, or
+                        the hybrid-SR solve followed by ``p += update``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..io.convert import ravel_params, unravel_like
+from ..optim.sr import HybridFisherSR, fishers_from_scores
 from ..sampling.mcmc import mcmc
 
 __all__ = ["make_sample_step", "make_accumulate_and_apply", "init_accumulators",
-           "DATA_KEYS"]
+           "apply_raveled_update", "DATA_KEYS", "FISHER_KEYS"]
 
 DATA_KEYS = ("F_mean", "F2_mean", "E_mean", "E2_mean", "K_mean",
              "K2_mean", "V_mean", "V2_mean", "S_mean", "S2_mean")
+# the Fisher payload of stochastic reconfiguration, beside them under ``sr``
+FISHER_KEYS = ("classical_fisher", "quantum_fisher", "quantum_score_mean")
 
 
 def make_sample_step(sampler, logp, mc_steps: int, mc_stddev, L, batch: int):
@@ -42,31 +47,54 @@ def make_sample_step(sampler, logp, mc_steps: int, mc_stddev, L, batch: int):
     return sample_step
 
 
+@torch.no_grad()
+def apply_raveled_update(van, flow, upd_van, upd_flow):
+    """``p += update`` for raveled update vectors (JAX parameter order)."""
+    for module, upd in ((van, upd_van), (flow, upd_flow)):
+        for p, u in zip(module.parameters(), unravel_like(upd, module)):
+            p.add_(u.to(p.dtype))
+
+
 def _zeros_like_params(module):
     return [torch.zeros_like(p) for p in module.parameters()]
 
 
 def init_accumulators(van, flow, sr: bool = False):
     """Zero accumulators for one epoch of gradient accumulation.  Gradients
-    and scores are lists in the order of ``module.parameters()``."""
-    if sr:
-        raise NotImplementedError("stochastic reconfiguration is not ported yet")
+    and scores are lists in the order of ``module.parameters()``.  With ``sr``
+    the Fisher payload is added: ``classical_fisher`` (P_van, P_van),
+    ``quantum_fisher`` (P_flow, P_flow) and ``quantum_score_mean`` (2, P_flow)
+    [Re, Im], rows and columns in the JAX package's raveled parameter order
+    (``io.convert.ravel_order``)."""
     p = next(flow.parameters())
-    return {
+    acc = {
         "data": {k: torch.zeros((), dtype=p.dtype, device=p.device) for k in DATA_KEYS},
         "grads": (_zeros_like_params(van), _zeros_like_params(flow)),
         "classical_score": _zeros_like_params(van),
         "quantum_score": _zeros_like_params(flow),
     }
+    if sr:
+        p_van = sum(q.numel() for q in van.parameters())
+        p_flow = sum(q.numel() for q in flow.parameters())
+        acc["classical_fisher"] = p.new_zeros(p_van, p_van)
+        acc["quantum_fisher"] = p.new_zeros(p_flow, p_flow)
+        acc["quantum_score_mean"] = p.new_zeros(2, p_flow)
+    return acc
 
 
 def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int,
-                              microbatch: int | None = None):
+                              microbatch: int | None = None,
+                              sr_opt: HybridFisherSR | None = None):
     """Build (accumulate, apply_update) for one training epoch.
 
     Per-step gradients and scores are accumulated, then normalized by
     acc_steps, baseline-corrected (grad_van -= F_mean * score_van,
-    grad_flow -= E_mean * score_flow) and handed to the optimizer.
+    grad_flow -= E_mean * score_flow) and handed to the optimizer: the
+    ``torch.optim`` optimizer given to ``apply_update``, or, with ``sr_opt``
+    (``optim.sr.hybrid_fisher_sr``), the hybrid Fisher solve.  Under SR the
+    REINFORCE gradients and mean scores are exact contractions of the
+    per-sample score matrices that the Fisher needs anyway (the clipped
+    weights are constants of the loss closures), so no loss gradient is taken.
 
     ``microbatch`` bounds the memory of the autograd graphs: the batch is
     processed in chunks of that many walkers, one after the other, and the
@@ -81,9 +109,27 @@ def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int,
         g_score = torch.autograd.grad(score, params)
         return list(g_loss), list(g_score)
 
+    use_sr = sr_opt is not None
+
     def _one_batch(van, flow, state_indices, x, generator, v):
-        data, classical_lossfn, quantum_lossfn, _ = observable_and_lossfn(
+        data, classical_lossfn, quantum_lossfn, aux = observable_and_lossfn(
             van, flow, state_indices, x, generator, v)
+        if use_sr:
+            with torch.no_grad():
+                s_c, s_q = sr_opt.scores(van, flow, state_indices, x)
+                batch = s_c.shape[0]
+                grad_van = s_c.T @ aux["Floc_clipped"] / batch
+                # 2 Re mean(S_q conj(Eloc)), in real arithmetic
+                Ec = aux["Eloc_clipped"]
+                grad_flow = 2.0 * (s_q.real.T @ Ec.real + s_q.imag.T @ Ec.imag) / batch
+                cf, qf, qsm = fishers_from_scores(s_c, s_q)
+                return {
+                    "data": data,
+                    "grads": (unravel_like(grad_van, van), unravel_like(grad_flow, flow)),
+                    "classical_score": unravel_like(s_c.mean(dim=0), van),
+                    "quantum_score": unravel_like(2.0 * qsm[0], flow),
+                    "classical_fisher": cf, "quantum_fisher": qf, "quantum_score_mean": qsm,
+                }
         grad_van, classical_score = _grad_pair(classical_lossfn, list(van.parameters()))
         grad_flow, quantum_score = _grad_pair(quantum_lossfn, list(flow.parameters()))
         return {
@@ -103,6 +149,9 @@ def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int,
         for dst, src in pairs:
             for a, b in zip(dst, src):
                 a.add_(b, alpha=weight)
+        if use_sr:
+            for k in FISHER_KEYS:
+                acc[k].add_(contrib[k], alpha=weight)
         return acc
 
     def accumulate(van, flow, state_indices, x, generator, acc, v=None):
@@ -121,18 +170,34 @@ def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int,
         return acc
 
     @torch.no_grad()
-    def apply_update(van, flow, optimizer, acc):
-        """Normalize, baseline-correct, step ``optimizer`` (which holds the
-        parameters of ``van`` and ``flow``).  Returns the epoch's observables
-        as 0-dim tensors."""
+    def apply_update(van, flow, optimizer, acc, trust_scale=1.0):
+        """Normalize, baseline-correct and update the parameters in place.
+
+        Without SR, ``optimizer`` is the ``torch.optim`` optimizer that holds
+        the parameters of ``van`` and ``flow``.  With SR it is not used (pass
+        ``None``): the hybrid Fisher solve gives the update and ``p += update``
+        applies it; ``trust_scale`` scales the trust radius ``max_norm`` (an
+        update tripwire's escalation factor), and the solve's diagnostics come
+        back as ``diag_*`` entries.  Returns the epoch's observables as 0-dim
+        tensors."""
         data = {k: val / acc_steps for k, val in acc["data"].items()}
-        for params, grads, scores, base in (
-            (van.parameters(), acc["grads"][0], acc["classical_score"], data["F_mean"]),
-            (flow.parameters(), acc["grads"][1], acc["quantum_score"], data["E_mean"]),
+        grads = []
+        for grad, scores, base in (
+            (acc["grads"][0], acc["classical_score"], data["F_mean"]),
+            (acc["grads"][1], acc["quantum_score"], data["E_mean"]),
         ):
-            for p, g, s in zip(params, grads, scores):
-                # REINFORCE baseline correction
-                p.grad = (g - base * s) / acc_steps
+            # REINFORCE baseline correction (base is normalized already)
+            grads.append([(g - base * s) / acc_steps for g, s in zip(grad, scores)])
+        if use_sr:
+            fishers = tuple(acc[k] / acc_steps for k in FISHER_KEYS)
+            raveled = (ravel_params(van, grads[0]), ravel_params(flow, grads[1]))
+            (upd_van, upd_flow), diag = sr_opt.update(raveled, None, fishers,
+                                                      max_norm_scale=trust_scale)
+            apply_raveled_update(van, flow, upd_van, upd_flow)
+            return dict(data, **{"diag_" + k: val for k, val in diag.items()})
+        for module, grad in zip((van, flow), grads):
+            for p, g in zip(module.parameters(), grad):
+                p.grad = g
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         return data

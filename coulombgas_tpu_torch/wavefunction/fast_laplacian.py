@@ -36,7 +36,8 @@ __all__ = ["make_logpsi_grad_laplacian_analytic"]
 
 
 def make_logpsi_grad_laplacian_analytic(sp_indices, L, flow_jac_lap,
-                                        hutchinson: bool = True, flow_jac=None):
+                                        hutchinson: bool = True, flow_jac=None,
+                                        flow_jac_lap_batched=None):
     """Batched (grad, laplacian) of log Psi with the analytic Slater part.
 
     ``flow_jac_lap(flow, x) -> (u, J (B, nd, nd), lap_u (B, nd))`` supplies
@@ -46,7 +47,11 @@ def make_logpsi_grad_laplacian_analytic(sp_indices, L, flow_jac_lap,
     loop, ``hutchinson=False``, is not ported yet).  That term is
     differentiated twice and needs J alone: ``flow_jac(flow, x) -> (u, J)``,
     when given, spares it the Laplacian's propagation (default: the first two
-    results of ``flow_jac_lap``).
+    results of ``flow_jac_lap``).  ``flow_jac_lap_batched(flow, x) -> (u, J,
+    lap_u)``, when given, replaces the primal flow evaluation of the Slater
+    part — the slot consumed outside autograd — by one call for the whole
+    batch (the depth-2 closure kernel, ``ops.cuda_flow_d2``); the Hutchinson
+    term keeps the differentiable ``flow_jac``.
 
     Returns ``fn(x, flow, state_indices, generator=None, v=None) ->
     (grad (B, n, dim) complex, laplacian (B,) complex)``.  The Hutchinson
@@ -59,6 +64,7 @@ def make_logpsi_grad_laplacian_analytic(sp_indices, L, flow_jac_lap,
     sp_indices = np.asarray(sp_indices)
     if flow_jac is None:
         flow_jac = lambda flow, x: flow_jac_lap(flow, x)[:2]  # noqa: E731
+    primal = flow_jac_lap_batched or flow_jac_lap
 
     @torch.no_grad()
     def slater_part(x, flow, state_indices):
@@ -66,7 +72,7 @@ def make_logpsi_grad_laplacian_analytic(sp_indices, L, flow_jac_lap,
         cdtype = complex_dtype(x.dtype)
         table = torch.as_tensor(sp_indices, dtype=x.dtype, device=x.device)
         k = 2 * torch.pi / L * table[state_indices]  # (B, n, dim)
-        u, J, lap_u = flow_jac_lap(flow, x)
+        u, J, lap_u = primal(flow, x)
 
         D = planewave_matrix(k, u, L)
         # LU inverse on purpose: the Gram form squares cond(D) and loses all

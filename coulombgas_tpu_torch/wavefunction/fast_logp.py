@@ -8,11 +8,13 @@ and needs no derivatives there:
       with u = flow(x), J = d flow / dx, D_ij = L^(-dim/2) e^{i k_j . u_i}.
 
 Counterpart of ``coulombgas_tpu/wavefunction/fast_logp.py`` with the same
-three routes:
+routes:
 
   1. ``use_flow_kernel`` and ``use_fused``: the flow kernel
      (``ops.cuda_flow_jac``) feeding the fused tail kernel
      (``ops.cuda_fused_logp``) back to back — the main path;
+     with ``use_d2_flow`` the flow comes from the depth-2 closure kernel
+     (``ops.cuda_flow_d2``) instead, again straight into the fused tail;
   2. ``use_fused`` only: the plain analytic flow Jacobian feeding the fused
      tail kernel;
   3. neither: the plain flow Jacobian, Gram matrices by torch, and the
@@ -29,6 +31,7 @@ import torch
 
 from ..models.ferminet import FermiNet
 from ..models.ferminet_jac import ferminet_apply_and_jac
+from ..ops.cuda_flow_d2 import flow_u_jac_d2_cuda
 from ..ops.cuda_flow_jac import flow_u_jac_cuda
 from ..ops.cuda_fused_logp import fused_logp_cuda
 from ..ops.logdet import chol_logdet, gram_logabsdet, planewave_gram_embed
@@ -53,11 +56,17 @@ def make_logp_fast(
     coordinate Jacobian on the routes without the flow kernel; it defaults to
     the analytic ``ferminet_apply_and_jac``.  ``chunk`` processes the batch in
     pieces of that many walkers.  No gradient is recorded.
+
+    ``use_d2_flow`` asks for the depth-2 closure kernel.  It needs
+    ``use_fused`` and a depth-2 flow within the kernel's shared-memory budget;
+    otherwise the call raises ``ValueError`` — a requested kernel launches or
+    the call fails, nothing else stands in for it.
     """
-    if use_large_flow or use_d2_flow:
+    if use_large_flow:
         raise NotImplementedError(
-            "use_large_flow / use_d2_flow: the row-chunked and depth-2 "
-            "closure flow kernels are not ported yet")
+            "use_large_flow: the row-chunked flow kernel is not ported yet")
+    if use_d2_flow and not use_fused:
+        raise ValueError("use_d2_flow requires use_fused")
     if use_flow_kernel and not use_fused:
         raise ValueError("use_flow_kernel requires use_fused")
     sp_indices = np.asarray(sp_indices)
@@ -72,6 +81,10 @@ def make_logp_fast(
             tables[x.device, x.dtype] = 2 * np.pi / L * torch.as_tensor(
                 sp_indices, dtype=x.dtype, device=x.device)
         k = tables[x.device, x.dtype][state_indices]
+        if use_d2_flow:
+            # raises for depth != 2 or a size beyond the kernel's budget
+            u, J = flow_u_jac_d2_cuda(flow, x)
+            return fused_logp_cuda(u, k, J, L)
         if use_flow_kernel:
             u, J = flow_u_jac_cuda(flow, x)
             return fused_logp_cuda(u, k, J, L)

@@ -12,10 +12,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..io.convert import ravel_named, ravel_order
+from ..models.per_sample import per_sample_jacobian
 from ..models.slater import logslaterdet
 from ..ops.logdet import logdet_spd_single
 
-__all__ = ["make_logpsi_fast", "to_complex"]
+__all__ = ["make_logpsi_fast", "make_quantum_score", "to_complex"]
 
 
 def make_logpsi_fast(flow_jac, sp_indices, L):
@@ -42,3 +44,18 @@ def make_logpsi_fast(flow_jac, sp_indices, L):
 def to_complex(pair):
     """(…, 2) real pair [Re, Im] -> complex."""
     return torch.complex(pair[..., 0], pair[..., 1])
+
+
+def make_quantum_score(logpsi):
+    """Per-sample d log Psi / d flow-params (complex), for the quantum Fisher.
+
+    Returns ``score(x (B, n, dim), flow, state_idx (B, n)) -> S_q (B, P_flow)``
+    complex, ``d Re log Psi + i d Im log Psi``, raveled in the JAX package's
+    parameter order (``io.convert.ravel_order``)."""
+
+    def quantum_score(x, flow, state_idx):
+        jac = per_sample_jacobian(lambda f, xx, si: logpsi(xx, f, si), flow, x, state_idx)
+        pair = ravel_named(jac, ravel_order(flow), batch_dims=2)  # (B, 2, P)
+        return torch.complex(pair[:, 0], pair[:, 1])
+
+    return quantum_score

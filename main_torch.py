@@ -2,17 +2,21 @@
 
 The port's counterpart of ``main.py``: the same flags, run-directory naming
 and ``data.txt`` columns, for the part of the system that is ported so far —
-Adam (no ``--sr``), ``--hutchinson``, the analytic Laplacian, and the
-Metropolis log-density on the hand-written CUDA kernels.  Flags that belong
-to parts not ported yet are parsed and refused with one line.  Runs on the
-GPU unless ``--cpu`` is given.
+Adam or stochastic reconfiguration (``--sr``, with ``--sr_solver`` and
+``--fisher_refresh``), ``--hutchinson``, the analytic Laplacian, and the
+Metropolis log-density on the hand-written CUDA kernels, with the depth-2
+closure kernels behind ``--mc_d2_kernel`` / ``--acc_d2_kernel``.  Flags that
+belong to parts not ported yet are parsed and refused with one line.  Runs on
+the GPU unless ``--cpu`` is given.
 
 The free-fermion pretraining is not ported yet: the pretrained VAN
 (``params_van.pkl``) must already lie under ``--folder``, where ``main.py``
 writes and looks for it.
 
-Example (the checked-in n = 29 pretraining):
+Examples (the checked-in n = 29 pretraining):
   python main_torch.py --hutchinson --folder data/interacting/ --epoch 100
+  python main_torch.py --sr --sr_solver host64 --hutchinson --mc_d2_kernel \
+      --acc_d2_kernel --folder data/interacting/ --out_folder runs/ --epoch 100
 """
 
 import argparse
@@ -35,21 +39,25 @@ from coulombgas_tpu_torch.io.logging import ObservableLog, stderr_from_moments
 from coulombgas_tpu_torch.models.ferminet import FermiNetConfig, init_ferminet_params
 from coulombgas_tpu_torch.models.ferminet_jac import select_flow_jac
 from coulombgas_tpu_torch.models.transformer import TransformerConfig, init_transformer_params
+from coulombgas_tpu_torch.ops.cuda_flow_d2 import flow_d2_fits, flow_u_jac_lap_d2_cuda
+from coulombgas_tpu_torch.optim.host_sr import HostFisherCache, host_hybrid_apply
+from coulombgas_tpu_torch.optim.sr import hybrid_fisher_sr
 from coulombgas_tpu_torch.physics.ewald import kpoints, madelung
 from coulombgas_tpu_torch.physics.orbitals import sp_orbitals, twist_sort
-from coulombgas_tpu_torch.sampling.autoregressive import make_autoregressive_sampler
+from coulombgas_tpu_torch.sampling.autoregressive import (
+    make_autoregressive_sampler, make_classical_score,
+)
 from coulombgas_tpu_torch.train.loss import make_loss
 from coulombgas_tpu_torch.train.train import (
-    init_accumulators, make_accumulate_and_apply, make_sample_step,
+    apply_raveled_update, init_accumulators, make_accumulate_and_apply,
+    make_sample_step,
 )
 from coulombgas_tpu_torch.wavefunction.fast_laplacian import (
     make_logpsi_grad_laplacian_analytic,
 )
 from coulombgas_tpu_torch.wavefunction.fast_logp import make_logp_fast
-from coulombgas_tpu_torch.wavefunction.logpsi import make_logpsi_fast
+from coulombgas_tpu_torch.wavefunction.logpsi import make_logpsi_fast, make_quantum_score
 
-SLICE_SR = "slice 2 (stochastic reconfiguration)"
-SLICE_KERNELS = "the slice that ports the depth-2 closure flow kernels"
 SLICE_REST = "slice 3 (pretraining, generic-AD engines, tripwire, watchdog, multi-GPU)"
 
 
@@ -58,6 +66,10 @@ def parse_args(argv=None):
         description="Finite-temperature VMC for the homogeneous electron gas (PyTorch/CUDA)"
     )
     parser.add_argument("--folder", default="./data/", help="the folder to save data")
+    parser.add_argument("--out_folder", default=None,
+                        help="where the run directory is made (default: --folder, which "
+                             "also holds the pretrained VAN); keeps a run apart from "
+                             "checked-in data of the same hyperparameters")
 
     # physical parameters
     parser.add_argument("--n", type=int, default=29, help="total number of electrons")
@@ -139,14 +151,9 @@ def parse_args(argv=None):
 
 
 def reject_unported(args):
-    """Refuse, with one line each, the flags whose code is not ported yet."""
+    """Refuse, with one line each, the flags whose code is not ported yet and
+    the requests that this run's other flags cannot meet."""
     waits = [
-        (args.sr, "--sr", SLICE_SR),
-        (args.sr_solver != "plain", "--sr_solver", SLICE_SR),
-        (args.fisher_refresh != 1, "--fisher_refresh", SLICE_SR),
-        (args.mc_d2_kernel, "--mc_d2_kernel", SLICE_KERNELS),
-        (args.acc_d2_kernel, "--acc_d2_kernel", SLICE_KERNELS),
-        (args.flow_jac == "d2", "--flow_jac d2", SLICE_KERNELS),
         (not args.hutchinson, "running without --hutchinson", SLICE_REST),
         (args.forloop_laplacian, "--forloop_laplacian", SLICE_REST),
         (args.laplacian != "analytic", "--laplacian ad", SLICE_REST),
@@ -162,6 +169,17 @@ def reject_unported(args):
         if hit:
             raise SystemExit("main_torch.py: %s is not ported yet; it waits for %s"
                              % (flag, slice_name))
+    # the depth-2 closed form and its kernels: a request that cannot be met
+    # fails here, nothing else stands in
+    for hit, flag in ((args.flow_jac == "d2", "--flow_jac d2"),
+                      (args.mc_d2_kernel, "--mc_d2_kernel"),
+                      (args.acc_d2_kernel, "--acc_d2_kernel")):
+        if hit and args.depth != 2:
+            raise SystemExit("main_torch.py: %s requires --depth 2 (got %d)" % (flag, args.depth))
+    if args.fisher_refresh < 1:
+        raise SystemExit("main_torch.py: --fisher_refresh must be at least 1")
+    if args.fisher_refresh > 1 and not (args.sr and args.sr_solver == "host64"):
+        raise SystemExit("main_torch.py: --fisher_refresh K > 1 needs --sr --sr_solver host64")
 
 
 def freefermion_path(args, twist):
@@ -225,7 +243,9 @@ class Trainer:
     sample_step: object
     accumulate: object
     apply_update: object
-    optimizer: torch.optim.Optimizer
+    optimizer: torch.optim.Optimizer | None  # None under --sr
+    sr_state: dict | None                    # diagnostics of the last SR solve
+    fisher_cache: HostFisherCache | None     # --sr_solver host64 --fisher_refresh K > 1
     generator: torch.Generator
     x: torch.Tensor
     path: str
@@ -295,8 +315,9 @@ def build_trainer(args, out_folder=None) -> Trainer:
     flow_jac, flow_jac_lap = select_flow_jac(flow_cfg, args.flow_jac)
     logpsi = make_logpsi_fast(flow_jac, sp_indices_twist, L)
     # Metropolis density: the flow kernel feeding the fused log-det tail kernel
+    # (--mc_d2_kernel: the depth-2 closure kernel in the flow kernel's place)
     logp = make_logp_fast(sp_indices_twist, L, chunk=args.mc_microbatch or None,
-                          jacobian=flow_jac)
+                          jacobian=flow_jac, use_d2_flow=args.mc_d2_kernel)
 
     # ---- Ewald -------------------------------------------------------------
     G = kpoints(dim, args.Gmax)
@@ -304,26 +325,53 @@ def build_trainer(args, out_folder=None) -> Trainer:
     print("(scaled) Vconst:", Vconst / (n * args.rs / L))
 
     # ---- optimizer -----------------------------------------------------------
-    optimizer = torch.optim.Adam(
-        [*van.parameters(), *flow.parameters()], lr=args.lr, betas=(0.9, 0.999), eps=1e-8)
-    print("Optimizer adam: lr = %.3f" % args.lr)
+    sr_opt = sr_state = optimizer = fisher_cache = None
+    if args.sr:
+        refined = args.sr_solver in ("refined", "chol")
+        sr_opt = hybrid_fisher_sr(
+            make_classical_score(log_prob), make_quantum_score(logpsi),
+            args.damping, args.max_norm, refine=2 if refined else 0, jacobi=refined,
+            chol=args.sr_solver == "chol")
+        sr_state = {k: float(v) for k, v in sr_opt.init().items()}
+        if args.sr_solver == "host64" and args.fisher_refresh > 1:
+            fisher_cache = HostFisherCache(args.damping)
+        print("Optimizer hybrid_fisher_sr: damping = %.5f, max_norm = %.5f, solver = %s"
+              % (args.damping, args.max_norm, args.sr_solver))
+    else:
+        optimizer = torch.optim.Adam(
+            [*van.parameters(), *flow.parameters()], lr=args.lr, betas=(0.9, 0.999), eps=1e-8)
+        print("Optimizer adam: lr = %.3f" % args.lr)
 
     path = run_directory(args, twist, out_folder or args.folder)
     print("Run directory:", path)
 
     # ---- training programs --------------------------------------------------
     sample_step = make_sample_step(sampler, logp, args.mc_steps, args.mc_stddev, L, args.batch)
+    flow_jac_lap_batched = None
+    if args.acc_d2_kernel:
+        # the primal flow + Jacobian + Laplacian of the kinetic energy from the
+        # depth-2 closure kernel, one launch for the batch; an explicit
+        # request, so it engages or the run ends here
+        if device.type == "cuda" and not flow_d2_fits(n, dim, flow_cfg, lap=True):
+            raise SystemExit(
+                "main_torch.py: --acc_d2_kernel requested but the depth-2 closure kernel "
+                "cannot engage: n = %d, dim = %d, widths %d/%d exceed its shared memory"
+                % (n, dim, args.spsize, args.tpsize))
+        flow_jac_lap_batched = flow_u_jac_lap_d2_cuda
     logpsi_grad_laplacian = make_logpsi_grad_laplacian_analytic(
-        sp_indices_twist, L, flow_jac_lap, hutchinson=args.hutchinson, flow_jac=flow_jac)
+        sp_indices_twist, L, flow_jac_lap, hutchinson=args.hutchinson, flow_jac=flow_jac,
+        flow_jac_lap_batched=flow_jac_lap_batched)
     observable_and_lossfn = make_loss(
         log_prob, logpsi, logpsi_grad_laplacian, args.kappa, G, L, args.rs, Vconst, beta)
     accumulate, apply_update = make_accumulate_and_apply(
-        observable_and_lossfn, args.acc_steps, microbatch=args.microbatch or None)
+        observable_and_lossfn, args.acc_steps, microbatch=args.microbatch or None,
+        sr_opt=sr_opt)
 
     generator = torch.Generator(device=device).manual_seed(42)
     x = L * torch.rand(args.batch, n, dim, generator=generator, dtype=rdtype, device=device)
     return Trainer(args, device, L, sp_indices_twist, van, flow, sampler, logp,
-                   sample_step, accumulate, apply_update, optimizer, generator, x, path)
+                   sample_step, accumulate, apply_update, optimizer, sr_state, fisher_cache,
+                   generator, x, path)
 
 
 def restore(tr: Trainer) -> bool:
@@ -342,7 +390,10 @@ def restore(tr: Trainer) -> bool:
     # the RNG key and optimizer state of main.py do not carry over;
     # this script keeps its own under names of its own
     if "torch_opt_state" in ckpt:
-        tr.optimizer.load_state_dict(from_host(ckpt["torch_opt_state"]))
+        if tr.args.sr:  # the diagnostics of the last SR solve
+            tr.sr_state = dict(ckpt["torch_opt_state"])
+        else:
+            tr.optimizer.load_state_dict(from_host(ckpt["torch_opt_state"]))
     if "torch_generator" in ckpt:
         tr.generator.set_state(torch.as_tensor(ckpt["torch_generator"]))
     return True
@@ -352,10 +403,40 @@ def checkpoint(tr: Trainer, epoch: int):
     fname = ckpt_filename(epoch, tr.path)
     save_data({
         "x": tr.x, "params_van": van_to_numpy(tr.van), "params_flow": flow_to_numpy(tr.flow),
-        "torch_opt_state": tr.optimizer.state_dict(),
+        "torch_opt_state": tr.sr_state if tr.args.sr else tr.optimizer.state_dict(),
         "torch_generator": tr.generator.get_state(),
     }, fname)
     print("Save checkpoint file:", fname)
+
+
+def apply_step(tr: Trainer, acc, epoch: int, seconds: dict, trust_scale: float = 1.0):
+    """The epoch's update: Adam, the hybrid-SR solve in the working precision
+    (``--sr_solver plain | refined | chol``), or the float64 apply
+    (``host64``; with ``--fisher_refresh K`` the classical factor is renewed
+    every K epochs).  Returns (observables, SR diagnostics) as Python floats
+    and adds the solve phases to ``seconds``."""
+    args = tr.args
+    t0 = time.time()
+    if args.sr and args.sr_solver == "host64":
+        refresh = (epoch - 1) % args.fisher_refresh == 0
+        stale = tr.fisher_cache is not None and tr.fisher_cache.ready and not refresh
+        view = {k: v for k, v in acc.items() if k != "classical_fisher"} if stale else acc
+        upd_van, upd_flow, d, diag = host_hybrid_apply(
+            view, args.acc_steps, args.damping, args.max_norm * trust_scale,
+            cache=tr.fisher_cache, van=tr.van, flow=tr.flow)
+        tr.sync()
+        seconds["solve64"] = time.time() - t0
+        t1 = time.time()
+        apply_raveled_update(tr.van, tr.flow, upd_van, upd_flow)
+        tr.sync()
+        seconds["param_update"] = time.time() - t1
+    else:
+        data = tr.apply_update(tr.van, tr.flow, tr.optimizer, acc, trust_scale)
+        d = {k: float(v) for k, v in data.items()}
+        diag = {k[5:]: d.pop(k) for k in [k for k in d if k.startswith("diag_")]}
+        tr.sync()
+    seconds["apply"] = time.time() - t0
+    return d, diag
 
 
 def train(args, out_folder=None) -> dict:
@@ -373,11 +454,12 @@ def train(args, out_folder=None) -> dict:
 
     before = [p.detach().clone() for p in [*tr.van.parameters(), *tr.flow.parameters()]]
     log = ObservableLog(tr.path, resume=args.epoch_finished > 0)
+    diag_log = open(os.path.join(tr.path, "sr_diag.txt"), "a", buffering=1) if args.sr else None
     total_batch = args.batch * args.acc_steps
     rs2 = args.rs**2
     records = []
     for i in range(args.epoch_finished + 1, args.epoch + 1):
-        acc = init_accumulators(tr.van, tr.flow)
+        acc = init_accumulators(tr.van, tr.flow, sr=args.sr)
         accept_sum = 0.0
         seconds = {"sample": 0.0, "accumulate": 0.0, "apply": 0.0}
         for _ in range(args.acc_steps):
@@ -391,11 +473,11 @@ def train(args, out_folder=None) -> dict:
             acc = tr.accumulate(tr.van, tr.flow, state_indices, tr.x, tr.generator, acc)
             tr.sync()
             seconds["accumulate"] += time.time() - t0
-        t0 = time.time()
-        data = tr.apply_update(tr.van, tr.flow, tr.optimizer, acc)
-        d = {k: float(v) for k, v in data.items()}
-        tr.sync()
-        seconds["apply"] = time.time() - t0
+        d, diag = apply_step(tr, acc, i, seconds)
+        if args.sr:
+            tr.sr_state = diag
+            diag_log.write("%6d  %.6e  %.4f  %.6e  %.4f\n" % (
+                i, diag["gnorm_van"], diag["scale_van"], diag["gnorm_flow"], diag["scale_flow"]))
 
         def col(name):
             return (d[name + "_mean"],
@@ -407,13 +489,16 @@ def train(args, out_folder=None) -> dict:
                         V / rs2, V_std / rs2, S, S_std, accept)
         if args.timing:
             print("TIMING %d: " % i + "  ".join("%s %.3f" % kv for kv in seconds.items()))
-        records.append({"epoch": i, "F": F / rs2, "E": E / rs2, "K": K / rs2, "V": V / rs2,
-                        "S": S, "accept_rate": accept,
-                        "sample_s": seconds["sample"], "accumulate_s": seconds["accumulate"],
-                        "apply_s": seconds["apply"]})
+        records.append(dict({"epoch": i, "F": F / rs2, "E": E / rs2, "K": K / rs2,
+                             "V": V / rs2, "S": S, "accept_rate": accept,
+                             "sample_s": seconds["sample"],
+                             "accumulate_s": seconds["accumulate"],
+                             "apply_s": seconds["apply"]}, **diag))
         if i % args.ckpt_every == 0:
             checkpoint(tr, i)
     log.close()
+    if diag_log is not None:
+        diag_log.close()
 
     after = [*tr.van.parameters(), *tr.flow.parameters()]
     changed = any(not torch.equal(a, b) for a, b in zip(after, before))
@@ -425,7 +510,8 @@ def train(args, out_folder=None) -> dict:
 
 
 def main(argv=None):
-    train(parse_args(argv))
+    args = parse_args(argv)
+    train(args, args.out_folder)
 
 
 if __name__ == "__main__":

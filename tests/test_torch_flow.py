@@ -18,7 +18,8 @@ from coulombgas_tpu_torch.models.ferminet import (
     FermiNetConfig, ferminet_apply, init_ferminet_params, softplus,
 )
 from coulombgas_tpu_torch.models.ferminet_jac import (
-    ferminet_apply_and_jac, ferminet_apply_jac_lap, select_flow_jac,
+    ferminet_apply_and_jac, ferminet_apply_and_jac_d2, ferminet_apply_jac_lap,
+    ferminet_apply_jac_lap_d2, select_flow_jac,
 )
 from coulombgas_tpu_torch.ops import cuda_flow_jac
 
@@ -133,8 +134,9 @@ def test_select_flow_jac():
     cfg = FermiNetConfig(2, 8, 8, 3.0)
     assert select_flow_jac(cfg, "auto") == (ferminet_apply_and_jac, ferminet_apply_jac_lap)
     assert select_flow_jac(cfg, "carried") == select_flow_jac(cfg, "auto")
-    with pytest.raises(NotImplementedError):
-        select_flow_jac(cfg, "d2")
+    assert select_flow_jac(cfg, "d2") == (ferminet_apply_and_jac_d2, ferminet_apply_jac_lap_d2)
+    with pytest.raises(ValueError):  # the closed form is exact for depth 2 only
+        select_flow_jac(FermiNetConfig(3, 8, 8, 3.0), "d2")
     with pytest.raises(ValueError):
         select_flow_jac(cfg, "other")
 

@@ -154,8 +154,16 @@ def test_accumulators_start_at_zero_and_sr_waits(both):
     assert set(acc["data"]) == set(DATA_KEYS)
     assert all(float(val) == 0 for val in acc["data"].values())
     assert all(float(g.abs().sum()) == 0 for g in acc["grads"][0] + acc["grads"][1])
-    with pytest.raises(NotImplementedError):
-        init_accumulators(both["van"], both["flow"], sr=True)
+    assert "classical_fisher" not in acc
+    # with SR the Fisher payload waits beside them, in the reference's layout
+    acc = init_accumulators(both["van"], both["flow"], sr=True)
+    p_van = sum(p.numel() for p in both["van"].parameters())
+    p_flow = sum(p.numel() for p in both["flow"].parameters())
+    assert acc["classical_fisher"].shape == (p_van, p_van)
+    assert acc["quantum_fisher"].shape == (p_flow, p_flow)
+    assert acc["quantum_score_mean"].shape == (2, p_flow)
+    assert all(float(acc[k].abs().sum()) == 0 for k in
+               ("classical_fisher", "quantum_fisher", "quantum_score_mean"))
 
 
 def test_sample_step_returns_wrapped_walkers(both):
@@ -203,9 +211,9 @@ def test_cli_trains_and_resumes_on_the_checked_in_pretraining(tmp_path):
 
 
 @pytest.mark.parametrize("flags,word", [
-    (["--sr"], "slice 2"), (["--sr_solver", "host64"], "slice 2"),
-    (["--mc_d2_kernel"], "depth-2"), (["--acc_d2_kernel"], "depth-2"),
-    (["--flow_jac", "d2"], "depth-2"), (["--slow_logp"], "slice 3"),
+    (["--forloop_laplacian"], "slice 3"), (["--hang_timeout", "60"], "slice 3"),
+    (["--coordinator", "localhost:1234"], "slice 3"), (["--num_processes", "2"], "slice 3"),
+    (["--process_id", "0"], "slice 3"), (["--slow_logp"], "slice 3"),
     (["--laplacian", "ad"], "slice 3"), (["--multihost"], "slice 3"),
     (["--tripwire_sigma", "15"], "slice 3"), (["--num_devices", "4"], "slice 3"),
 ])
