@@ -11,15 +11,27 @@ exit code:
   kernels  each hand-written kernel against its plain PyTorch version at the
            main path's shapes (n = 29, dim = 2, depth 2, widths 16,
            batch 2048): error in f32 and against f64, a singular input, a
-           ragged batch, and timings; the two flow kernels (carried state and
-           depth-2 closure) also against each other;
+           ragged batch, and timings; the flow kernels (carried state,
+           depth-2 closure, row-chunked) also against each other; the
+           row-chunked kernels also at n = 57, batch 512, on the trained
+           weights and walkers of the checked-in n = 57 checkpoint, with the
+           carried-state kernel timed beside them there;
   train    two Adam epochs through main_torch.py's own functions at the
            default width, with the launch counters read around them, then one
            sample step on the route that uses the third kernel;
   train_sr three epochs of stochastic reconfiguration (--sr --sr_solver host64
            --mc_d2_kernel --acc_d2_kernel) at the same width, counters set to
            zero before and read after, then the plain solver's step on the
-           same accumulators beside host64's.
+           same accumulators beside host64's;
+  train_n57 the production configuration (n = 57, rs 1.0, Emax 49, batch
+           512, --sr --sr_solver host64 --tripwire_sigma 6) resumed from a
+           copy of the checked-in epoch-100 checkpoint for 2 epochs (acc_steps
+           cut from 16 to 2; no width is cut), then one sample step on the
+           row-chunked flow kernels (use_large_flow) with its counters, and
+           its logp against the default route's on the same walkers;
+  pretrain 20 epochs of the free-fermion pretraining (n = 13, Emax 25,
+           batch 8192, SR as main_torch.py runs it) with F beside the exact
+           mpmath value.
 
 The line before the last lists every kernel with its launches on the main
 path, its error, its time and its bound.  The last line is
@@ -30,6 +42,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -41,10 +55,11 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
 
-from coulombgas_tpu_torch.models.ferminet import FermiNetConfig, init_ferminet_params
-from coulombgas_tpu_torch.io.convert import ravel_params
+from coulombgas_tpu_torch.models.ferminet import FermiNet, FermiNetConfig, init_ferminet_params
+from coulombgas_tpu_torch.io.checkpoint import load_data
+from coulombgas_tpu_torch.io.convert import flow_from_numpy, ravel_params
 from coulombgas_tpu_torch.ops import (
-    _build, cuda_flow_d2, cuda_flow_jac, cuda_fused_logp, cuda_logdet,
+    _build, cuda_flow_d2, cuda_flow_jac, cuda_flow_large, cuda_fused_logp, cuda_logdet,
 )
 from coulombgas_tpu_torch.ops.logdet import planewave_gram_embed
 from coulombgas_tpu_torch.physics.orbitals import sp_orbitals, twist_sort
@@ -62,6 +77,14 @@ PEAK_F32_FLOPS = 67e12
 # Main-path shapes.
 N, DIM, DEPTH, SPSIZE, TPSIZE, EMAX, BATCH = 29, 2, 2, 16, 16, 25, 2048
 K3_BATCH = 2 * BATCH
+# The production configuration of the row-chunked kernels, and its checked-in
+# checkpoint (trained weights and thermalised walkers).
+N57, EMAX57, BATCH57 = 57, 49, 512
+N57_FOLDER = os.path.join("data", "interacting_n57_goodseed")
+N57_RUN = ("n_57_dim_2_rs_1.0_Theta_0.15_Emax_49_twist_0.250_0.250_nlayers_2_modelsize_16_"
+           "nheads_4_nhidden_32_depth_2_spsize_16_tpsize_16_Gmax_15_kappa_10_mctherm_10_"
+           "mcsteps_50_mcstddev_0.10_hutchinson_damping_0.00100_maxnorm_0.00100_batch_512_"
+           "ndevices_1_accsteps_16")
 
 # Tolerances.  u and J: the kernel and the plain version do the same f32
 # arithmetic in another order, entries are O(1) (u up to L ~ 10).  logp: a
@@ -214,6 +237,114 @@ def d2_flops(B, n, dim, S, T, lap: bool):
         fl += n * dim * 2 * S * (2 * S + T) + n * 2 * (2 * S + T) * S + 2 * n * S * dim
         trans += pair * dim
     return B * fl, B * trans
+
+
+def large_flops(B, n, dim, S, T):
+    """f32 operations of the row-chunked depth-2 flow as the function needs
+    them (A0 has 3 non-zero entries per coordinate; AW, A1 and tp1 are each
+    counted once, however often the kernels rebuild them), and the
+    transcendental calls beside them."""
+    C0 = 2 * dim + 1
+    pair = n * n
+    fl = pair * (C0 + dim * S * 9) + n * 2 * C0 * S       # layer 0: mean tp0, AW, sum_j, Jsp1
+    fl += pair * dim * S                                  # jmean
+    fl += pair * (2 * C0 * T + dim * T * 8 + T)           # pre_tp, A1, sums over j
+    fl += n * dim * 2 * T * S + n * 2 * (2 * S + T) * S + n * dim * 2 * S * S  # sum AW1, pre, jmean W1b
+    fl += pair * dim * S * (2 * S + 2 * T + 4)            # Jsp1 W1a, A1 W1c, assembly
+    fl += pair * dim * dim * 2 * S + 2 * n * S * dim      # J, u
+    trans = pair * (2 * dim + 1) + pair * 3 * T + n * 6 * S  # sincos, sqrt; exp, log1p, 1/(1+e)
+    return B * fl, B * trans
+
+
+def load_n57():
+    """The trained flow (f32, on the card) and the 512 walkers of the
+    checked-in n = 57 epoch-100 checkpoint."""
+    ckpt = load_data(os.path.join(N57_FOLDER, N57_RUN, "epoch_000100.pkl"))
+    L = math.sqrt(math.pi * N57)
+    flow = FermiNet(FermiNetConfig(DEPTH, SPSIZE, TPSIZE, L), DIM, torch.float32, DEV)
+    flow_from_numpy(ckpt["params_flow"], flow)
+    x = torch.as_tensor(np.asarray(ckpt["x"], np.float32), device=DEV).contiguous()
+    check(tuple(x.shape) == (BATCH57, N57, DIM), "n = 57 checkpoint walkers %s" % (tuple(x.shape),))
+    return L, flow, x
+
+
+def kernels_large(flow29, x29, u1, J1):
+    """K4 at the n = 57 production shape (trained weights, thermalised
+    walkers) and at the main path's n = 29 shape; ``u1, J1`` are the
+    carried-state kernel's results on ``x29``."""
+    lg = cuda_flow_large
+    L57, flow57, x57 = load_n57()
+    errs, ms = {}, {}
+    for tag, flow, x, ref1 in (("n57", flow57, x57, None), ("n29", flow29, x29, (u1, J1))):
+        flow64 = init_ferminet_params(flow.cfg, DIM, None, torch.float64, DEV)
+        flow64.load_state_dict({k: v.double() for k, v in flow.state_dict().items()})
+        u, J = lg.flow_u_jac_large_cuda(flow, x)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            u32, J32 = lg.flow_u_jac_large_ref(flow, x)
+            u64, J64 = lg.flow_u_jac_large_ref(flow64, x.double())
+            if ref1 is None:
+                ref1 = cuda_flow_jac.flow_u_jac_cuda(flow, x)
+        e = {"f32": (max_err(u, u32), max_err(J, J32)), "f64": (max_err(u, u64), max_err(J, J64)),
+             "flow_u_jac": (max_err(u, ref1[0]), max_err(J, ref1[1]))}
+        for ref, (eu, eJ) in e.items():
+            check(eu <= TOL_U and eJ <= TOL_UJ,
+                  "flow_u_jac_large (%s) vs %s: u %g J %g" % (tag, ref, eu, eJ))
+        # a ragged batch reproduces the full batch bit for bit
+        ur, Jr = lg.flow_u_jac_large_cuda(flow, x[:-1])
+        check(torch.equal(ur, u[:-1]) and torch.equal(Jr, J[:-1]),
+              "flow_u_jac_large (%s): ragged batch differs" % tag)
+        errs[tag] = e
+        with torch.no_grad():
+            ms[tag] = time_ms(lambda: lg.flow_u_jac_large_cuda(flow, x), 20)
+            if tag == "n57":
+                ms["flow_u_jac_n57"] = time_ms(lambda: cuda_flow_jac.flow_u_jac_cuda(flow, x), 20)
+                ms["plain"] = time_ms(lambda: lg.flow_u_jac_large_ref(flow, x), 5)
+    # dim 3, uneven widths, coincident particles
+    for dim, S, T, n, B in [(3, 16, 16, 8, 65), (2, 8, 12, 13, 33)]:
+        Lg = float(n) ** (1 / dim)
+        fg = init_ferminet_params(FermiNetConfig(2, S, T, Lg, 0.2), dim,
+                                  torch.Generator().manual_seed(n), torch.float32, DEV)
+        xg = Lg * torch.rand(B, n, dim, device=DEV, generator=torch.Generator(DEV).manual_seed(n))
+        xg[:, 1] = xg[:, 0]
+        got = lg.flow_u_jac_large_cuda(fg, xg)
+        with torch.no_grad():
+            ref = lg.flow_u_jac_large_ref(fg, xg)
+        e = [max_err(a, b) for a, b in zip(got, ref)]
+        check(all(bool(torch.isfinite(a).all()) for a in got) and e[0] <= TOL_U and e[1] <= TOL_UJ,
+              "flow_u_jac_large (n %d, dim %d, widths %d/%d) vs plain: %s" % (n, dim, S, T, e))
+    # the shared-memory budget, as the built library states it
+    check(lg.flow_large_fits(N57, DIM, SPSIZE, TPSIZE) and lg.flow_large_fits(N, DIM, SPSIZE, TPSIZE)
+          and lg.flow_large_smem_bytes(N57, DIM, SPSIZE, TPSIZE)
+          > lg.flow_large_smem_bytes(N, DIM, SPSIZE, TPSIZE)
+          and not lg.flow_large_fits(2000, DIM, SPSIZE, TPSIZE)
+          and not lg.flow_large_fits(N, 4, SPSIZE, TPSIZE),
+          "flow_u_jac_large: shared-memory budget")
+    try:  # a requested kernel launches or raises: depth 3 is refused
+        lg.flow_u_jac_large_cuda(init_ferminet_params(
+            FermiNetConfig(3, SPSIZE, TPSIZE, L57), DIM, None, torch.float32, DEV), x57[:4])
+        check(False, "flow_u_jac_large accepted a depth-3 flow")
+    except ValueError:
+        pass
+    nparams = cuda_flow_jac.pack_flow_params(flow57).numel()
+    nd = N57 * DIM
+    nbytes = 4 * (2 * BATCH57 * nd + BATCH57 * nd * nd + nparams)
+    flops, trans = large_flops(BATCH57, N57, DIM, SPSIZE, TPSIZE)
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return {
+        "name": "flow_u_jac_large", "route": "cuda",
+        "source": "coulombgas_tpu_torch/csrc/flow_large.cu",
+        "replaces": "coulombgas_tpu/ops/pallas_flow_jac.py:403",
+        "replaces_also": "coulombgas_tpu/ops/pallas_flow_jac.py:445",
+        "shape": {"n": N57, "batch": BATCH57, "dim": DIM, "weights": "checkpoint epoch 100"},
+        "max_abs_err": max(errs["n57"]["f32"]), "max_abs_err_f64": max(errs["n57"]["f64"]),
+        "abs_err_vs_flow_u_jac": max(errs["n57"]["flow_u_jac"]),
+        "errors_u_J": errs,  # u reaches L = 13.4 at n 57: its f32 ulp is 1e-6
+        "tolerance": TOL_U, "ms": ms["n57"], "plain_ms": ms["plain"],
+        "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+        "library_ms": None, "f32_operations": flops, "transcendentals": trans, "bytes": nbytes,
+        "flow_u_jac_ms_same_shape": ms["flow_u_jac_n57"], "ms_n29_b2048": ms["n29"],
+    }
 
 
 def kernels_d2(L, cfg, flow, flow64, x, u1, J1):
@@ -391,6 +522,10 @@ def phase_kernels():
     # ---- K5 / K6 flow_u_jac_d2, flow_u_jac_lap_d2: the depth-2 closure ---------
     rows += kernels_d2(L, cfg, flow, flow64, x, u, J)
 
+    # ---- K4 flow_u_jac_large: the row-chunked depth-2 kernels --------------------
+    rows.append(kernels_large(flow, x, u, J))
+    rows[0]["ms_n57_b512"] = rows[-1]["flow_u_jac_ms_same_shape"]
+
     # ---- K2 fused_logp ------------------------------------------------------
     lp = cuda_fused_logp.fused_logp_cuda(u, kvec, J, L)
     torch.cuda.synchronize()
@@ -504,13 +639,15 @@ def phase_kernels():
 
 def reset_counts():
     cuda_flow_jac.launches = cuda_fused_logp.launches = cuda_logdet.launches = 0
+    cuda_flow_large.launches = 0
     for name in cuda_flow_d2.launches:
         cuda_flow_d2.launches[name] = 0
 
 
 def read_counts():
     return dict({"flow_u_jac": cuda_flow_jac.launches, "fused_logp": cuda_fused_logp.launches,
-                 "chol_logdet": cuda_logdet.launches}, **cuda_flow_d2.launches)
+                 "chol_logdet": cuda_logdet.launches,
+                 "flow_u_jac_large": cuda_flow_large.launches}, **cuda_flow_d2.launches)
 
 
 def phase_train():
@@ -670,6 +807,116 @@ def phase_train_sr():
     return counts
 
 
+def phase_train_n57():
+    """The n = 57 production recipe through main_torch.py's own functions,
+    resumed from a copy of the checked-in epoch-100 checkpoint, then one
+    sample step on the row-chunked flow kernels."""
+    import main_torch
+
+    epochs, acc_steps = 2, 2
+    out = os.path.join("runs", "chip_smoke_n57")  # listed in .gitignore; data/ stays unwritten
+    shutil.rmtree(out, ignore_errors=True)
+    args = main_torch.parse_args([
+        "--n", str(N57), "--rs", "1.0", "--Emax", str(EMAX57), "--batch", str(BATCH57),
+        "--acc_steps", str(acc_steps), "--sr", "--hutchinson", "--sr_solver", "host64",
+        "--tripwire_sigma", "6", "--epoch_finished", "100", "--epoch", str(100 + epochs),
+        "--ckpt_every", "1000000", "--folder", N57_FOLDER + os.sep, "--out_folder", out,
+    ])
+    run_dir = main_torch.run_directory(args, np.array(args.twist), out)
+    shutil.copy(os.path.join(N57_FOLDER, N57_RUN, "epoch_000100.pkl"), run_dir)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    run = main_torch.train(args, out_folder=out)
+    seconds = time.time() - t0
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for row in run["epochs"]:
+        emit(dict({"phase": "train_n57"}, **row))
+        vals = [row[k] for k in ("F", "E", "K", "V", "S", "accept_rate")]
+        check(all(math.isfinite(v) for v in vals), "n = 57: non-finite observable in epoch %d" % row["epoch"])
+        check(0.05 < row["accept_rate"] < 0.95,
+              "n = 57: accept rate %g out of (0.05, 0.95)" % row["accept_rate"])
+    check(len(run["epochs"]) + len(run["reverted"]) == epochs, "n = 57: epochs %s" % run["epochs"])
+    check(run["params_changed"], "n = 57: parameters did not change")
+    # the default route: the carried-state flow kernel and the fused tail;
+    # the trainer restored from the checkpoint, so no thermalisation sweeps
+    expect = 51 * epochs * acc_steps
+    check(counts["flow_u_jac"] == expect and counts["fused_logp"] == expect
+          and counts["flow_u_jac_large"] == 0 and counts["chol_logdet"] == 2 * epochs * acc_steps,
+          "n = 57 launch counters %s, expected %d for flow_u_jac and fused_logp" % (counts, expect))
+    emit({"phase": "train_n57", "seconds": seconds, "peak_GiB": round(peak_gib, 3),
+          "tripwire_reverts": run["reverted"], "trust_scale": run["trust_scale"],
+          "cuts": {"acc_steps": [16, acc_steps], "epochs": epochs}, "launches": counts})
+
+    # one sample step with the row-chunked kernels behind the Metropolis logp
+    tr = run["trainer"]
+    logp4 = make_logp_fast(tr.sp_indices, tr.L, use_large_flow=True)
+    sample4 = main_torch.make_sample_step(tr.sampler, logp4, args.mc_steps, args.mc_stddev,
+                                          tr.L, args.batch)
+    reset_counts()
+    si, x4, acc4 = sample4(tr.van, tr.flow, tr.x, tr.generator)
+    torch.cuda.synchronize()
+    counts4 = read_counts()
+    check(counts4["flow_u_jac_large"] == 51 and counts4["fused_logp"] == 51
+          and counts4["flow_u_jac"] == 0,
+          "large-flow sample step launch counters %s, expected 51, 51 and 0 flow_u_jac" % counts4)
+    lp4 = logp4(x4, tr.flow, si)
+    lp1 = tr.logp(x4, tr.flow, si)
+    e_max, e_p99 = max_err(lp4, lp1), p99_err(lp4, lp1)
+    check(bool(torch.isfinite(lp4).all()) and e_p99 <= TOL_LOGP and e_max <= TOL_LOGP_MAX,
+          "n = 57 logp, row-chunked vs carried-state route: p99 %g max %g" % (e_p99, e_max))
+    # the two routes' sample steps in turns (default, large, large, default),
+    # host clock around a synchronize, on copies of the same walkers
+    walls = {"default": [], "use_large_flow": []}
+    for name in ("default", "use_large_flow", "use_large_flow", "default"):
+        step = tr.sample_step if name == "default" else sample4
+        xs = x4.clone()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        step(tr.van, tr.flow, xs, tr.generator)
+        torch.cuda.synchronize()
+        walls[name].append(time.time() - t0)
+    emit({"phase": "train_n57", "route": "use_large_flow", "accept_rate": float(acc4),
+          "logp_p99_abs_diff_vs_default_route": e_p99, "logp_max_abs_diff_vs_default_route": e_max,
+          "sample_step_wall_s": walls, "launches": counts4})
+    shutil.rmtree(out)
+    return counts, counts4
+
+
+def phase_pretrain(epochs: int = 20):
+    """The free-fermion pretraining on the card, with main_torch.py's settings."""
+    import main_torch
+    from coulombgas_tpu_torch.analytic.canonical import Z_E
+    from coulombgas_tpu_torch.models.transformer import TransformerConfig, init_transformer_params
+    from coulombgas_tpu_torch.train.pretrain import pretrain
+
+    n, Emax, batch = 13, 25, 8192
+    t0 = time.time()
+    F_exact = float(Z_E(n, DIM, 0.15, [0.25, 0.25], Emax, dps=600)[0])
+    oracle_s = time.time() - t0
+    van = init_transformer_params(TransformerConfig(sp_orbitals(DIM, Emax)[1].size, 2, 16, 4, 32),
+                                  DIM, torch.Generator().manual_seed(0), torch.float32, DEV)
+    path = os.path.join("runs", "chip_smoke_pretrain")
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.time()
+    pretrain(van, n, DIM, 0.15, Emax, np.array([0.25, 0.25]), path,
+             torch.Generator(DEV).manual_seed(0), main_torch.PRE_LR, main_torch.PRE_SR,
+             main_torch.PRE_DAMPING, main_torch.PRE_MAXNORM, batch, epoch=epochs,
+             check_analytic=False)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    rows = np.loadtxt(os.path.join(path, "data.txt"), ndmin=2)
+    shutil.rmtree(path)
+    check(rows.shape[1] == 7 and np.isfinite(rows).all() and len(rows) >= epochs // 2,
+          "pretrain: data.txt rows %s" % (rows.shape,))
+    check(rows[-1, 1] < rows[0, 1], "pretrain: F did not fall (%g -> %g)" % (rows[0, 1], rows[-1, 1]))
+    emit({"phase": "pretrain", "n": n, "Emax": Emax, "batch": batch, "epochs": epochs,
+          "logged_epochs": len(rows), "F_first": rows[0, 1], "F_last": rows[-1, 1],
+          "F_last_stderr": rows[-1, 2], "F_exact": F_exact, "S_last": rows[-1, 5],
+          "seconds": seconds, "s_per_epoch": seconds / epochs, "oracle_s": oracle_s})
+
+
 def main():
     t0 = time.time()
     smi = phase_device()
@@ -677,11 +924,15 @@ def main():
     rows = phase_kernels()
     counts = phase_train()
     counts_sr = phase_train_sr()
+    counts_n57, counts_k4 = phase_train_n57()
+    phase_pretrain()
+    paths = {"adam": counts, "sr": counts_sr, "n57": counts_n57, "n57_large_flow_step": counts_k4}
     for row in rows:
-        # the depth-2 closure kernels run on the SR path only, the carried-state
-        # flow kernel on the Adam path only
-        row["launches"] = counts[row["name"]] or counts_sr[row["name"]]
-        row["launches_sr_path"] = counts_sr[row["name"]]
+        # each kernel's count on the path that runs it: the carried-state flow
+        # kernel on the Adam path, the depth-2 closure kernels on the SR path,
+        # the row-chunked kernels on the large-flow sample step
+        row["launches"] = next((c[row["name"]] for c in paths.values() if c[row["name"]]), 0)
+        row["launches_by_path"] = {k: c[row["name"]] for k, c in paths.items()}
         check(row["launches"] > 0, "kernel %s was not launched on a main path" % row["name"])
     emit({"phase": "done", "seconds": round(time.time() - t0, 1)})
     print(smi, flush=True)

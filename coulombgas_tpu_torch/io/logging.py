@@ -2,9 +2,15 @@
 
 ``data.txt`` per run directory; training columns:
     iter F F_std E E_std K K_std V V_std S S_std accept_rate
+pretraining columns:
+    iter F F_std E E_std S S_std
 F/E/K/V in Ry/rs^2, S dimensionless; error bars are
 sqrt((<O^2> - <O>^2) / total_batch).  The byte format is the same as
 ``coulombgas_tpu/io/logging.py`` writes, so one analysis reads either log.
+
+Epochs reverted by the update tripwire (``train/tripwire.py``) are not
+written — their record goes to ``sr_diag.txt`` — so the epoch column is
+monotone but may have gaps: key on the epoch value, never on the row count.
 """
 
 from __future__ import annotations
@@ -52,6 +58,15 @@ class ObservableLog:
             ("%6d" + "  %.6f" * 10 + "  %.4f" + "\n")
             % (i, F, F_std, E, E_std, K, K_std, V, V_std, S, S_std, accept_rate)
         )
+
+    def write_pretrain(self, i, F, F_std, E, E_std, S, S_std):
+        print(
+            "iter: %04d" % i,
+            "F:", F, "F_std:", F_std,
+            "E:", E, "E_std:", E_std,
+            "S:", S, "S_std:", S_std,
+        )
+        self.f.write(("%6d" + "  %.6f" * 6 + "\n") % (i, F, F_std, E, E_std, S, S_std))
 
     def close(self):
         self.f.close()

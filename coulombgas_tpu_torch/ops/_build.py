@@ -18,7 +18,7 @@ import subprocess
 __all__ = ["KERNEL_SOURCES", "build_all", "load_library", "check_launch",
            "SMEM_LIMIT_BYTES"]
 
-KERNEL_SOURCES = ("flow_jac", "fused_logp", "chol_logdet", "flow_d2")
+KERNEL_SOURCES = ("flow_jac", "fused_logp", "chol_logdet", "flow_d2", "flow_large")
 
 # Shared memory one block may use on Hopper (dynamic, after opt-in).
 SMEM_LIMIT_BYTES = 232448

@@ -14,7 +14,9 @@ routes:
      (``ops.cuda_flow_jac``) feeding the fused tail kernel
      (``ops.cuda_fused_logp``) back to back — the main path;
      with ``use_d2_flow`` the flow comes from the depth-2 closure kernel
-     (``ops.cuda_flow_d2``) instead, again straight into the fused tail;
+     (``ops.cuda_flow_d2``) instead, and with ``use_large_flow`` from the
+     row-chunked depth-2 kernels (``ops.cuda_flow_large``), again straight
+     into the fused tail (the closure kernel wins when both are asked for);
   2. ``use_fused`` only: the plain analytic flow Jacobian feeding the fused
      tail kernel;
   3. neither: the plain flow Jacobian, Gram matrices by torch, and the
@@ -33,6 +35,7 @@ from ..models.ferminet import FermiNet
 from ..models.ferminet_jac import ferminet_apply_and_jac
 from ..ops.cuda_flow_d2 import flow_u_jac_d2_cuda
 from ..ops.cuda_flow_jac import flow_u_jac_cuda
+from ..ops.cuda_flow_large import flow_u_jac_large_cuda
 from ..ops.cuda_fused_logp import fused_logp_cuda
 from ..ops.logdet import chol_logdet, gram_logabsdet, planewave_gram_embed
 
@@ -57,16 +60,17 @@ def make_logp_fast(
     the analytic ``ferminet_apply_and_jac``.  ``chunk`` processes the batch in
     pieces of that many walkers.  No gradient is recorded.
 
-    ``use_d2_flow`` asks for the depth-2 closure kernel.  It needs
-    ``use_fused`` and a depth-2 flow within the kernel's shared-memory budget;
-    otherwise the call raises ``ValueError`` — a requested kernel launches or
-    the call fails, nothing else stands in for it.
+    ``use_d2_flow`` asks for the depth-2 closure kernel, ``use_large_flow``
+    for the row-chunked depth-2 kernels; with both, the closure kernel runs,
+    as in the JAX package.  Either needs ``use_fused`` and a depth-2 flow
+    within the kernel's shared-memory budget; otherwise the call raises
+    ``ValueError`` — a requested kernel launches or the call fails, nothing
+    else stands in for it.
     """
-    if use_large_flow:
-        raise NotImplementedError(
-            "use_large_flow: the row-chunked flow kernel is not ported yet")
     if use_d2_flow and not use_fused:
         raise ValueError("use_d2_flow requires use_fused")
+    if use_large_flow and not use_fused:
+        raise ValueError("use_large_flow requires use_fused")
     if use_flow_kernel and not use_fused:
         raise ValueError("use_flow_kernel requires use_fused")
     sp_indices = np.asarray(sp_indices)
@@ -84,6 +88,9 @@ def make_logp_fast(
         if use_d2_flow:
             # raises for depth != 2 or a size beyond the kernel's budget
             u, J = flow_u_jac_d2_cuda(flow, x)
+            return fused_logp_cuda(u, k, J, L)
+        if use_large_flow:
+            u, J = flow_u_jac_large_cuda(flow, x)  # raises as the closure kernel does
             return fused_logp_cuda(u, k, J, L)
         if use_flow_kernel:
             u, J = flow_u_jac_cuda(flow, x)

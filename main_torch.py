@@ -5,22 +5,31 @@ and ``data.txt`` columns, for the part of the system that is ported so far —
 Adam or stochastic reconfiguration (``--sr``, with ``--sr_solver`` and
 ``--fisher_refresh``), ``--hutchinson``, the analytic Laplacian, and the
 Metropolis log-density on the hand-written CUDA kernels, with the depth-2
-closure kernels behind ``--mc_d2_kernel`` / ``--acc_d2_kernel``.  Flags that
-belong to parts not ported yet are parsed and refused with one line.  Runs on
-the GPU unless ``--cpu`` is given.
+closure kernels behind ``--mc_d2_kernel`` / ``--acc_d2_kernel``; the update
+tripwire (``--tripwire_sigma``, on by default as in ``main.py``) and the
+hang watchdog (``--hang_timeout``).  Flags that belong to parts not ported
+yet are parsed and refused with one line.  Runs on the GPU unless ``--cpu``
+is given.
 
-The free-fermion pretraining is not ported yet: the pretrained VAN
-(``params_van.pkl``) must already lie under ``--folder``, where ``main.py``
-writes and looks for it.
+The pretrained VAN is read from ``params_van.pkl`` under ``--folder``, where
+``main.py`` writes and looks for it; where there is none, the free-fermion
+pretraining runs first (``--pre_batch``, ``--pre_epoch``) and writes it there.
 
-Examples (the checked-in n = 29 pretraining):
+Examples (the checked-in pretrainings and the n = 57 epoch-100 checkpoint):
   python main_torch.py --hutchinson --folder data/interacting/ --epoch 100
   python main_torch.py --sr --sr_solver host64 --hutchinson --mc_d2_kernel \
       --acc_d2_kernel --folder data/interacting/ --out_folder runs/ --epoch 100
+  python main_torch.py --n 57 --rs 1.0 --Emax 49 --batch 512 --acc_steps 16 --sr \
+      --hutchinson --sr_solver host64 --tripwire_sigma 6 --epoch_finished 100 \
+      --epoch 110 --folder data/interacting_n57_goodseed/ --out_folder runs/n57/
+  (the last resumes from runs/n57/<run directory>/epoch_000100.pkl: copy the
+  checked-in checkpoint there first; --out_folder keeps data/ unwritten)
 """
 
 import argparse
+import copy
 import hashlib
+import math
 import os
 import time
 from dataclasses import dataclass
@@ -48,17 +57,20 @@ from coulombgas_tpu_torch.sampling.autoregressive import (
     make_autoregressive_sampler, make_classical_score,
 )
 from coulombgas_tpu_torch.train.loss import make_loss
+from coulombgas_tpu_torch.train.pretrain import pretrain
 from coulombgas_tpu_torch.train.train import (
     apply_raveled_update, init_accumulators, make_accumulate_and_apply,
     make_sample_step,
 )
+from coulombgas_tpu_torch.train.tripwire import UpdateTripwire
+from coulombgas_tpu_torch.utils.watchdog import StepWatchdog
 from coulombgas_tpu_torch.wavefunction.fast_laplacian import (
     make_logpsi_grad_laplacian_analytic,
 )
 from coulombgas_tpu_torch.wavefunction.fast_logp import make_logp_fast
 from coulombgas_tpu_torch.wavefunction.logpsi import make_logpsi_fast, make_quantum_score
 
-SLICE_REST = "slice 3 (pretraining, generic-AD engines, tripwire, watchdog, multi-GPU)"
+SLICE_REST = "slice 4 (generic-AD engines, multi-GPU)"
 
 
 def parse_args(argv=None):
@@ -121,11 +133,16 @@ def parse_args(argv=None):
     parser.add_argument("--sr_solver", choices=["plain", "refined", "chol", "host64"],
                         default="plain")
     parser.add_argument("--fisher_refresh", type=int, default=1)
-    parser.add_argument("--hang_timeout", type=float, default=0.0)
-    parser.add_argument("--tripwire_sigma", type=float, default=0.0,
-                        help="update tripwire (not ported yet; 0 = off)")
+    parser.add_argument("--hang_timeout", type=float, default=0.0,
+                        help="hard-exit with code 42 if no epoch completes for this many "
+                             "seconds (0 disables; the first interval gets a 4x grace "
+                             "for the kernel builds)")
+    parser.add_argument("--tripwire_sigma", type=float, default=15.0,
+                        help="revert an update when F jumps upward by more than this many "
+                             "combined standard errors in one epoch (<= 0 disables)")
     parser.add_argument("--timing", action="store_true",
-                        help="print the seconds of sample / accumulate / apply every epoch")
+                        help="print the seconds of sample / accumulate / apply every epoch "
+                             "(and the peak device memory on a GPU)")
 
     # training
     parser.add_argument("--batch", type=int, default=2048,
@@ -158,8 +175,6 @@ def reject_unported(args):
         (args.forloop_laplacian, "--forloop_laplacian", SLICE_REST),
         (args.laplacian != "analytic", "--laplacian ad", SLICE_REST),
         (args.slow_logp, "--slow_logp", SLICE_REST),
-        (args.hang_timeout != 0.0, "--hang_timeout", SLICE_REST),
-        (args.tripwire_sigma != 0.0, "--tripwire_sigma", SLICE_REST),
         (args.multihost or args.coordinator is not None
          or args.num_processes is not None or args.process_id is not None,
          "--multihost/--coordinator/--num_processes/--process_id", SLICE_REST),
@@ -182,16 +197,19 @@ def reject_unported(args):
         raise SystemExit("main_torch.py: --fisher_refresh K > 1 needs --sr --sr_solver host64")
 
 
+# The pretraining's optimizer, fixed as main.py fixes it: SR, plain solver.
+PRE_SR, PRE_DAMPING, PRE_MAXNORM, PRE_LR = True, 0.001, 0.001, 1e-3
+
+
 def freefermion_path(args, twist):
     """Directory of the pretrained VAN, as main.py names it."""
-    pre_damping, pre_maxnorm = 0.001, 0.001
     return os.path.join(
         args.folder, "freefermion", "pretraining",
         "n_%d_dim_%d_Theta_%.2f_Emax_%d" % (args.n, args.dim, args.Theta, args.Emax)
         + ("_twist" + "_%.3f" * args.dim) % tuple(twist),
         "nlayers_%d_modelsize_%d_nheads_%d_nhidden_%d" % (
             args.nlayers, args.modelsize, args.nheads, args.nhidden)
-        + "_damping_%.5f_maxnorm_%.5f" % (pre_damping, pre_maxnorm)
+        + "_damping_%.5f_maxnorm_%.5f" % (PRE_DAMPING, PRE_MAXNORM)
         + "_batch_%d" % args.pre_batch,
     )
 
@@ -298,15 +316,19 @@ def build_trainer(args, out_folder=None) -> Trainer:
           % sum(p.numel() for p in van.parameters()))
     sampler, log_prob = make_autoregressive_sampler(sp_indices_twist, n, num_states)
 
-    pre_fname = pretrained_model_filename(freefermion_path(args, twist))
-    if not os.path.isfile(pre_fname):
-        raise SystemExit(
-            "main_torch.py: no pretrained free-fermion model at %s; the "
-            "pretraining is not ported yet (it waits for %s) — run main.py's "
-            "pretraining first, or point --folder at a directory that holds one"
-            % (pre_fname, SLICE_REST))
-    print("Load pretrained free-fermion model:", pre_fname)
-    van_from_numpy(load_data(pre_fname), van)
+    pre_path = freefermion_path(args, twist)
+    pre_fname = pretrained_model_filename(pre_path)
+    if os.path.isfile(pre_fname):
+        print("Load pretrained free-fermion model:", pre_fname)
+        van_from_numpy(load_data(pre_fname), van)
+    else:
+        print("No pretrained model found; running free-fermion pretraining...")
+        os.makedirs(pre_path, exist_ok=True)
+        pretrain(van, n, dim, args.Theta, args.Emax, twist, pre_path,
+                 torch.Generator(device=device).manual_seed(41),
+                 PRE_LR, PRE_SR, PRE_DAMPING, PRE_MAXNORM, args.pre_batch, epoch=args.pre_epoch)
+        save_data(van_to_numpy(van), pre_fname)
+        print("Pretraining done; saved to", pre_fname)
 
     # ---- flow + logpsi ----------------------------------------------------
     flow_cfg = FermiNetConfig(args.depth, args.spsize, args.tpsize, L)
@@ -439,9 +461,34 @@ def apply_step(tr: Trainer, acc, epoch: int, seconds: dict, trust_scale: float =
     return d, diag
 
 
+def snapshot_state(tr: Trainer):
+    """What the update tripwire keeps of the state entering an epoch: the
+    parameters, the optimizer or SR state, a COPY of the walkers (the loop
+    rebinds ``tr.x``, and a revert may hand the same snapshot out twice) and
+    the generator state — a bad step poisons the Markov chains as well."""
+    return ({k: v.detach().clone() for k, v in tr.van.state_dict().items()},
+            {k: v.detach().clone() for k, v in tr.flow.state_dict().items()},
+            copy.deepcopy(tr.optimizer.state_dict()) if tr.optimizer is not None
+            else dict(tr.sr_state),
+            tr.x.clone(), tr.generator.get_state())
+
+
+def restore_state(tr: Trainer, state):
+    van, flow, opt, x, gen = state
+    tr.van.load_state_dict(van)
+    tr.flow.load_state_dict(flow)
+    if tr.optimizer is not None:
+        tr.optimizer.load_state_dict(opt)
+    else:
+        tr.sr_state = dict(opt)
+    tr.x = x.clone()
+    tr.generator.set_state(gen)
+
+
 def train(args, out_folder=None) -> dict:
     """Run ``args.epoch - args.epoch_finished`` epochs.  Returns the trainer,
-    one record per epoch and whether the parameters moved."""
+    one record per logged epoch, the epochs the tripwire reverted and
+    whether the parameters moved."""
     tr = build_trainer(args, out_folder)
     if not restore(tr):
         print("No checkpoint found. Starting from scratch; thermalizing...")
@@ -457,48 +504,100 @@ def train(args, out_folder=None) -> dict:
     diag_log = open(os.path.join(tr.path, "sr_diag.txt"), "a", buffering=1) if args.sr else None
     total_batch = args.batch * args.acc_steps
     rs2 = args.rs**2
-    records = []
-    for i in range(args.epoch_finished + 1, args.epoch + 1):
-        acc = init_accumulators(tr.van, tr.flow, sr=args.sr)
-        accept_sum = 0.0
-        seconds = {"sample": 0.0, "accumulate": 0.0, "apply": 0.0}
-        for _ in range(args.acc_steps):
-            t0 = time.time()
-            state_indices, tr.x, accept_rate = tr.sample_step(
-                tr.van, tr.flow, tr.x, tr.generator)
-            tr.sync()
-            seconds["sample"] += time.time() - t0
-            accept_sum += float(accept_rate)
-            t0 = time.time()
-            acc = tr.accumulate(tr.van, tr.flow, state_indices, tr.x, tr.generator, acc)
-            tr.sync()
-            seconds["accumulate"] += time.time() - t0
-        d, diag = apply_step(tr, acc, i, seconds)
-        if args.sr:
-            tr.sr_state = diag
-            diag_log.write("%6d  %.6e  %.4f  %.6e  %.4f\n" % (
-                i, diag["gnorm_van"], diag["scale_van"], diag["gnorm_flow"], diag["scale_flow"]))
+    records, reverted_epochs = [], []
+    # Update tripwire: a rare catastrophic step shows as an upward F jump in
+    # the NEXT epoch's observables (or as non-finite ones, an exploded
+    # standard error, a collapsed accept rate); revert to the best healthy
+    # state and go on; on bursts shrink the SR trust radius (train/tripwire.py).
+    tripwire = UpdateTripwire(sigma=args.tripwire_sigma)
+    watchdog = StepWatchdog(
+        args.hang_timeout, context="n=%d rs=%g epoch>%d" % (args.n, args.rs, args.epoch_finished),
+    ).start()
+    try:
+        for i in range(args.epoch_finished + 1, args.epoch + 1):
+            # the heartbeat is at the TOP of the loop: every phase of the
+            # previous epoch ended in a device synchronize, so it certifies
+            # that the device answered
+            watchdog.beat()
+            tripwire.snapshot(snapshot_state(tr))
+            acc = init_accumulators(tr.van, tr.flow, sr=args.sr)
+            accept_sum = 0.0
+            seconds = {"sample": 0.0, "accumulate": 0.0, "apply": 0.0}
+            for _ in range(args.acc_steps):
+                t0 = time.time()
+                state_indices, tr.x, accept_rate = tr.sample_step(
+                    tr.van, tr.flow, tr.x, tr.generator)
+                tr.sync()
+                seconds["sample"] += time.time() - t0
+                accept_sum += float(accept_rate)
+                t0 = time.time()
+                acc = tr.accumulate(tr.van, tr.flow, state_indices, tr.x, tr.generator, acc)
+                tr.sync()
+                seconds["accumulate"] += time.time() - t0
+            d, diag = apply_step(tr, acc, i, seconds, tripwire.trust_scale)
+            accept = accept_sum / args.acc_steps
 
-        def col(name):
-            return (d[name + "_mean"],
-                    stderr_from_moments(d[name + "_mean"], d[name + "2_mean"], total_batch))
+            # ---- tripwire check (the observables describe the PRE-apply state)
+            finite = all(math.isfinite(v) for v in d.values())
+            F_raw = d["F_mean"]
+            F_sig = (stderr_from_moments(d["F_mean"], d["F2_mean"], total_batch)
+                     if math.isfinite(d["F_mean"]) and math.isfinite(d["F2_mean"])
+                     else float("nan"))
+            revert_to = tripwire.check(F_raw, F_sig, finite, accept=accept,
+                                       S=d["S_mean"] if math.isfinite(d["S_mean"]) else None)
+            reverted = revert_to is not None
+            if reverted:
+                restore_state(tr, revert_to)
+                reverted_epochs.append(i)
+                msg = ("TRIPWIRE epoch %d: %s (F %.6f) — reverted parameters and "
+                       "walkers to the best healthy state" % (i, tripwire.last_reason, F_raw))
+                print(msg)
+                if diag_log is not None:
+                    diag_log.write("# " + msg + "\n")
+                if args.sr and tripwire.trust_scale < 1.0:
+                    print("TRIPWIRE: trust radius scaled to %g"
+                          % (args.max_norm * tripwire.trust_scale))
+            elif tripwire.drift_events and tripwire.drift_events[-1] == i - args.epoch_finished:
+                # no revert target exists along a flat-F leak: warn loudly
+                msg = ("TRIPWIRE epoch %d: entropy-drift ALARM — S %.4f has fallen below "
+                       "the established plateau at non-improving F; suspect an "
+                       "over-damped or ill-conditioned SR solve" % (i, d["S_mean"]))
+                print(msg)
+                if diag_log is not None:
+                    diag_log.write("# " + msg + "\n")
+            if args.timing:
+                if tr.device.type == "cuda":
+                    seconds["peak_GiB"] = torch.cuda.max_memory_allocated(tr.device) / 2**30
+                print("TIMING %d: " % i + "  ".join("%s %.3f" % kv for kv in seconds.items()))
+            if not reverted:
+                # a reverted epoch's observables describe the corrupted state:
+                # they stay out of data.txt (the event is in sr_diag.txt)
+                if args.sr:
+                    tr.sr_state = diag
+                    diag_log.write("%6d  %.6e  %.4f  %.6e  %.4f\n" % (
+                        i, diag["gnorm_van"], diag["scale_van"], diag["gnorm_flow"],
+                        diag["scale_flow"]))
 
-        (F, F_std), (E, E_std), (K, K_std), (V, V_std), (S, S_std) = map(col, "FEKVS")
-        accept = accept_sum / args.acc_steps
-        log.write_train(i, F / rs2, F_std / rs2, E / rs2, E_std / rs2, K / rs2, K_std / rs2,
-                        V / rs2, V_std / rs2, S, S_std, accept)
-        if args.timing:
-            print("TIMING %d: " % i + "  ".join("%s %.3f" % kv for kv in seconds.items()))
-        records.append(dict({"epoch": i, "F": F / rs2, "E": E / rs2, "K": K / rs2,
-                             "V": V / rs2, "S": S, "accept_rate": accept,
-                             "sample_s": seconds["sample"],
-                             "accumulate_s": seconds["accumulate"],
-                             "apply_s": seconds["apply"]}, **diag))
-        if i % args.ckpt_every == 0:
-            checkpoint(tr, i)
-    log.close()
-    if diag_log is not None:
-        diag_log.close()
+                def col(name):
+                    return (d[name + "_mean"],
+                            stderr_from_moments(d[name + "_mean"], d[name + "2_mean"],
+                                                total_batch))
+
+                (F, F_std), (E, E_std), (K, K_std), (V, V_std), (S, S_std) = map(col, "FEKVS")
+                log.write_train(i, F / rs2, F_std / rs2, E / rs2, E_std / rs2, K / rs2,
+                                K_std / rs2, V / rs2, V_std / rs2, S, S_std, accept)
+                records.append(dict({"epoch": i, "F": F / rs2, "E": E / rs2, "K": K / rs2,
+                                     "V": V / rs2, "S": S, "accept_rate": accept,
+                                     "sample_s": seconds["sample"],
+                                     "accumulate_s": seconds["accumulate"],
+                                     "apply_s": seconds["apply"]}, **diag))
+            if i % args.ckpt_every == 0:
+                checkpoint(tr, i)
+    finally:
+        watchdog.stop()
+        log.close()
+        if diag_log is not None:
+            diag_log.close()
 
     after = [*tr.van.parameters(), *tr.flow.parameters()]
     changed = any(not torch.equal(a, b) for a, b in zip(after, before))
@@ -506,7 +605,8 @@ def train(args, out_folder=None) -> dict:
     for p in after:
         h.update(p.detach().cpu().numpy().tobytes())
     print("final params checksum:", h.hexdigest())
-    return {"trainer": tr, "epochs": records, "params_changed": changed}
+    return {"trainer": tr, "epochs": records, "reverted": reverted_epochs,
+            "trust_scale": tripwire.trust_scale, "params_changed": changed}
 
 
 def main(argv=None):

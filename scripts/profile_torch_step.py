@@ -30,16 +30,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import main_torch  # noqa: E402
 from coulombgas_tpu_torch.train.train import init_accumulators  # noqa: E402
+from coulombgas_tpu_torch.utils.profiling import trace  # noqa: E402
 
 
 def profiled(fn, top=4):
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.synchronize()
     t0 = time.time()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(None, "cuda") as prof:
         out = fn()
-        torch.cuda.synchronize()
     wall = time.time() - t0
     rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]

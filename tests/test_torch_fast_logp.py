@@ -98,8 +98,9 @@ def test_logp_custom_jacobian_and_unported_options():
     b = make_logp_fast(sp, cfg.L)(t(x), flow, t(si))
     assert calls == [tuple(x.shape)]
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12, atol=1e-12)
-    with pytest.raises(NotImplementedError):  # the row-chunked kernel is not ported
-        make_logp_fast(sp, cfg.L, use_large_flow=True)
+    # the row-chunked depth-2 kernels (their plain version on CPU tensors)
+    c = make_logp_fast(sp, cfg.L, use_large_flow=True)(t(x), flow, t(si))
+    np.testing.assert_allclose(c.numpy(), b.numpy(), rtol=1e-10, atol=1e-10)
     with pytest.raises(ValueError):  # the depth-2 closure kernel feeds the fused tail only
         make_logp_fast(sp, cfg.L, use_d2_flow=True, use_fused=False, use_flow_kernel=False)
     with pytest.raises(ValueError):

@@ -90,7 +90,7 @@ def test_cli_host64_refreshes_the_classical_factor_every_k_epochs(tmp_path):
     (["--flow_jac", "d2"], "--flow_jac d2 requires --depth 2"),
     (["--sr", "--fisher_refresh", "4"], "--fisher_refresh K > 1 needs --sr --sr_solver host64"),
     (["--fisher_refresh", "0"], "--fisher_refresh must be at least 1"),
-    (["--sr", "--tripwire_sigma", "15"], "--tripwire_sigma is not ported yet"),
+    (["--sr", "--num_devices", "2"], "--num_devices > 1 is not ported yet"),
 ])
 def test_cli_exits_with_one_line_where_a_flag_cannot_be_met(flags, message):
     args = main_torch.parse_args(["--cpu", "--hutchinson", "--depth", "3"] + flags)
