@@ -1,11 +1,10 @@
 """FermiNet flow forward + analytic Jacobian on the GPU — hand-written CUDA.
 
 Counterpart of ``coulombgas_tpu/ops/pallas_flow_jac.py:flow_u_jac_pallas``.
-The kernels (``csrc/flow_jac.cu``) decompose the carried Jacobian state over
-its column particle: a forward kernel (one block per walker) writes u and the
-per-layer activations' sigmoids, a Jacobian kernel (one block per walker and
-column particle l) carries ``Jsp[:, l]`` through the layers in shared memory.
-Used by the Metropolis logp only; no gradient runs through it.
+One kernel (``csrc/flow_jac.cu``), one launch per call: a block per walker
+runs the forward pass into shared memory, then each of its warps carries one
+column particle's part of the Jacobian, ``Jsp[:, l]``, through the layers in
+registers.  Used by the Metropolis logp only; no gradient runs through it.
 
 Layout is batch-first: x ``(B, n, dim)`` -> u ``(B, n, dim)``,
 J ``(B, nd, nd)`` with rows (i, b) and columns (l, a) — exactly what
@@ -25,8 +24,7 @@ from ._build import SMEM_LIMIT_BYTES, check_launch, load_library
 __all__ = ["flow_u_jac_cuda", "flow_u_jac_plain", "flow_jac_fits",
            "flow_jac_smem_bytes", "pack_flow_params", "launches"]
 
-# Number of wrapper calls that launched the kernels (each call launches the
-# forward kernel and the Jacobian kernel once).
+# Number of kernel launches made by ``flow_u_jac_cuda`` (one per call).
 launches = 0
 
 
@@ -36,15 +34,15 @@ def flow_u_jac_plain(flow: FermiNet, x):
 
 
 def flow_jac_smem_bytes(n: int, dim: int, cfg) -> int:
-    """Shared memory of one block as the built library states it, the larger
-    of the two kernels' needs; -1 where dim or a width is beyond the kernels."""
+    """Shared memory of one block as the built library states it; -1 where
+    n, dim or a width is beyond the kernel."""
     return _lib().cg_flow_smem(n, dim, cfg.depth, cfg.spsize, cfg.tpsize)
 
 
 def flow_jac_fits(n: int, dim: int, cfg) -> bool:
-    """Whether the kernels take this size: dim <= 3, widths <= 32, and the n
-    ceiling is shared memory (about 0.7 KB per particle at depth 2, dim 2,
-    width 16).  Asks the built library, so it needs ``nvcc``."""
+    """Whether the kernel takes this size: n <= 64 (a lane of a warp owns two
+    rows), dim <= 3, widths <= 32.  Asks the built library, so it needs
+    ``nvcc``."""
     return 0 <= flow_jac_smem_bytes(n, dim, cfg) <= SMEM_LIMIT_BYTES
 
 
@@ -59,7 +57,7 @@ def pack_flow_params(flow: FermiNet):
 
 def _lib():
     lib = load_library("flow_jac")
-    lib.cg_flow_u_jac.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    lib.cg_flow_u_jac.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.cg_flow_u_jac.restype = ctypes.c_int
     lib.cg_flow_smem.argtypes = [ctypes.c_int] * 5
@@ -70,7 +68,7 @@ def _lib():
 def flow_u_jac_cuda(flow: FermiNet, x):
     """u (B, n, dim) and J (B, nd, nd) for walkers x (B, n, dim).
 
-    A CUDA tensor must be f32 and is handled by the kernels (or this raises);
+    A CUDA tensor must be f32 and is handled by the kernel (or this raises);
     a CPU tensor goes through the plain version.
     """
     global launches
@@ -88,7 +86,8 @@ def flow_u_jac_cuda(flow: FermiNet, x):
     if not flow_jac_fits(n, dim, cfg):
         raise ValueError(
             "n = %d, dim = %d, spsize = %d, tpsize = %d is beyond the flow "
-            "kernel (shared memory %d of %d bytes; -1: a width > 32 or dim > 3)" % (
+            "kernel (shared memory %d of %d bytes; -1: n > 64, a width > 32 or "
+            "dim > 3)" % (
                 n, dim, cfg.spsize, cfg.tpsize,
                 flow_jac_smem_bytes(n, dim, cfg), SMEM_LIMIT_BYTES))
     params = pack_flow_params(flow)
@@ -100,12 +99,11 @@ def flow_u_jac_cuda(flow: FermiNet, x):
     nd = n * dim
     u = torch.empty(B, n, dim, dtype=torch.float32, device=x.device)
     J = torch.empty(B, nd, nd, dtype=torch.float32, device=x.device)
-    sig = torch.empty(B, cfg.depth, n, cfg.spsize, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         code = _lib().cg_flow_u_jac(
-            x.data_ptr(), params.data_ptr(), sig.data_ptr(), u.data_ptr(),
-            J.data_ptr(), B, n, dim, cfg.depth, cfg.spsize, cfg.tpsize,
-            float(cfg.L), torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), params.data_ptr(), u.data_ptr(), J.data_ptr(), B, n, dim,
+            cfg.depth, cfg.spsize, cfg.tpsize, float(cfg.L),
+            torch.cuda.current_stream().cuda_stream)
     check_launch(code, "flow_u_jac")
     launches += 1
     return u, J

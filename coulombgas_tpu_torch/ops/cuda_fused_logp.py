@@ -4,9 +4,11 @@
     D[i][m] = L^(-dim/2) exp(i k_m . u_i)
 
 Counterpart of ``coulombgas_tpu/ops/pallas_fused_logp.py``.  The kernel
-(``csrc/fused_logp.cu``) gives one thread block to each walker; the plane-wave
-matrix, both Gram matrices and both eliminations stay in shared memory and one
-number per walker leaves.  Layout is batch-first — u, k ``(B, n, dim)``,
+(``csrc/fused_logp.cu``) gives one thread block to each walker, whose warps
+form two groups: one streams J into the real Gram and eliminates it, the
+other builds the plane-wave matrix and its Hermitian Gram and eliminates
+that, both at the same time, in panels of 8 columns (``csrc/chol_blocked.cuh``).
+Both Grams stay in shared memory and one number per walker leaves.  Layout is batch-first — u, k ``(B, n, dim)``,
 J ``(B, nd, nd)`` — which is what ``ops.cuda_flow_jac.flow_u_jac_cuda``
 writes, so the two run back to back with no transpose.
 """
@@ -29,14 +31,16 @@ launches = 0
 
 
 def fused_smem_bytes(n: int, dim: int) -> int:
-    """Shared memory of one walker's block, as the built library states it."""
+    """Shared memory of one walker's block, as the built library states it;
+    -1 beyond the kernel's n ceiling."""
     return _lib().cg_fused_logp_smem(n, dim)
 
 
 def fused_fits(n: int, dim: int) -> bool:
-    """Whether one walker fits a thread block's shared memory.  Asks the
-    built library, so it needs ``nvcc``."""
-    return fused_smem_bytes(n, dim) <= SMEM_LIMIT_BYTES
+    """Whether the kernel takes this size: nd <= 152 and one walker within a
+    thread block's shared memory.  Asks the built library, so it needs
+    ``nvcc``."""
+    return 0 <= fused_smem_bytes(n, dim) <= SMEM_LIMIT_BYTES
 
 
 def fused_logp_plain(u, kvec, J, L: float):
