@@ -15,7 +15,9 @@ exit code:
            depth-2 closure, row-chunked) also against each other; the
            row-chunked kernels also at n = 57, batch 512, on the trained
            weights and walkers of the checked-in n = 57 checkpoint, with the
-           carried-state kernel timed beside them there, and the fused tail
+           carried-state kernel timed beside them there, the depth-2
+           closure kernel there too (against both plain versions and the
+           carried-state kernel, the two timed in turns), and the fused tail
            on the carried-state kernel's (u, J) there; the fused tail also
            with one zero column of J at a panel's first, middle and last
            column;
@@ -32,12 +34,19 @@ exit code:
            cut from 16 to 2; no width is cut), then one sample step on the
            row-chunked flow kernels (use_large_flow) with its counters, and
            its logp against the default route's on the same walkers;
+  routes   the Metropolis logp past the kernels' size limits, left to
+           choose its route: n = 65 (beyond the flow kernel: the analytic
+           Jacobian into the fused tail) and n = 57 at dim 3 (nd 171, beyond
+           the fused tail: the stacked Grams through chol_logdet), each with
+           Metropolis sweeps, its launch counters, and logp against plain f64;
   pretrain 20 epochs of the free-fermion pretraining (n = 13, Emax 25,
            batch 8192, SR as main_torch.py runs it) with F beside the exact
            mpmath value.
 
 The line before the last lists every kernel with its launches on the main
-path, its error, its time and its bound.  The last line is
+path, its error, its time and its bound; K1 and K5 also with the time of
+calls run back to back (``ms_b2b``), which leaves out their wrappers' host
+work.  The last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device; exits non-zero without.
 """
 
@@ -136,6 +145,25 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def time_ms_b2b(fn, reps: int = 20, warmup: int = 2) -> float:
+    """Time of one ``fn()`` on the device in milliseconds when ``reps`` calls
+    run back to back between two CUDA events: the host's work for the next
+    call overlaps the device's for this one, so a kernel longer than its
+    wrapper's host work is timed without that work (``time_ms`` times one
+    call alone, with it)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def max_err(a, b) -> float:
     return float((a.detach().double() - b.detach().double()).abs().max())
 
@@ -169,7 +197,7 @@ def phase_build():
     ptxas = {}
     for name, log in logs.items():
         ptxas[name] = [ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln][:8]
+                       if "registers" in ln or "spill" in ln or "entry function" in ln][:40]
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
           "sources": ["coulombgas_tpu_torch/csrc/%s.cu" % s for s in _build.KERNEL_SOURCES],
           "ptxas": ptxas})
@@ -481,14 +509,16 @@ def kernels_d2(L, cfg, flow, flow64, x, u1, J1):
         check(False, "flow_u_jac_d2 accepted a depth-3 flow")
     except ValueError:
         pass
+    n57 = kernel_d2_n57()
     rows = []
     nparams = cuda_flow_jac.pack_flow_params(flow).numel()
     for name, fn, plain, lap_on, line in (
-        ("flow_u_jac_d2", d2.flow_u_jac_d2_cuda, d2.flow_u_jac_d2_plain, False, 1265),
-        ("flow_u_jac_lap_d2", d2.flow_u_jac_lap_d2_cuda, d2.flow_u_jac_lap_d2_plain, True, 1290),
+        ("flow_u_jac_d2", d2.flow_u_jac_d2_cuda, d2.flow_u_jac_d2_plain, False, 1033),
+        ("flow_u_jac_lap_d2", d2.flow_u_jac_lap_d2_cuda, d2.flow_u_jac_lap_d2_plain, True, 1237),
     ):
         with torch.no_grad():
             ms = time_ms(lambda: fn(flow, x), 20)
+            ms_b2b = time_ms_b2b(lambda: fn(flow, x), 20)
             plain_ms = time_ms(lambda: plain(flow, x), 5)
         nbytes = 4 * (2 * BATCH * nd + BATCH * nd * nd + nparams + (BATCH * nd if lap_on else 0))
         flops, trans = d2_flops(BATCH, N, DIM, SPSIZE, TPSIZE, lap_on)
@@ -499,7 +529,7 @@ def kernels_d2(L, cfg, flow, flow64, x, u1, J1):
             "source": "coulombgas_tpu_torch/csrc/flow_d2.cu",
             "replaces": "coulombgas_tpu/ops/pallas_flow_jac.py:%d" % line,
             "max_abs_err": max(e32[:2]), "max_abs_err_f64": max(e64[:2]),
-            "tolerance": TOL_U, "ms": ms, "plain_ms": plain_ms,
+            "tolerance": TOL_U, "ms": ms, "ms_b2b": ms_b2b, "plain_ms": plain_ms,
             "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
             "library_ms": None, "f32_operations": flops, "transcendentals": trans,
             "bytes": nbytes,
@@ -508,9 +538,52 @@ def kernels_d2(L, cfg, flow, flow64, x, u1, J1):
             rows[-1].update({"lap_abs_err": e32[2], "lap_abs_err_f64": e64[2],
                              "lap_max_abs": float(lap64.abs().max()), "tolerance_lap": TOL_LAP})
         else:
-            rows[-1].update({"abs_err_vs_flow_u_jac": max(e_k1)})
+            rows[-1].update({"abs_err_vs_flow_u_jac": max(e_k1),
+                             "replaces_also": ["coulombgas_tpu/ops/pallas_flow_jac.py:1062",
+                                               "coulombgas_tpu/ops/pallas_flow_jac.py:1125"],
+                             "smem_bytes": d2.flow_d2_smem_bytes(N, DIM, cfg)})
+            rows[-1].update(n57)
         rows[-1]["coincident_abs_err"] = max(e_co)
     return rows
+
+
+def kernel_d2_n57():
+    """K5 at the production shape n = 57, batch 512, on the checked-in
+    checkpoint's trained weights and walkers, beside K1 on the same walkers:
+    errors against both plain versions and K1, a ragged batch, and the two
+    kernels timed in turns (K1, K5, K5, K1)."""
+    d2 = cuda_flow_d2
+    L57, flow57, x57 = load_n57()
+    flow64 = init_ferminet_params(flow57.cfg, DIM, None, torch.float64, DEV)
+    flow64.load_state_dict({k: v.double() for k, v in flow57.state_dict().items()})
+    with torch.no_grad():
+        u, J = d2.flow_u_jac_d2_cuda(flow57, x57)
+        u1, J1 = cuda_flow_jac.flow_u_jac_cuda(flow57, x57)
+        torch.cuda.synchronize()
+        u32, J32 = d2.flow_u_jac_d2_plain(flow57, x57)
+        u64, J64 = d2.flow_u_jac_d2_plain(flow64, x57.double())
+        e = {"f32": (max_err(u, u32), max_err(J, J32)), "f64": (max_err(u, u64), max_err(J, J64)),
+             "flow_u_jac": (max_err(u, u1), max_err(J, J1))}
+        for ref, (eu, eJ) in e.items():  # u reaches L = 13.4 here: its f32 ulp is 1e-6
+            check(eu <= TOL_U and eJ <= TOL_UJ,
+                  "flow_u_jac_d2 (n 57, checkpoint) vs %s: u %g J %g" % (ref, eu, eJ))
+        ur, Jr = d2.flow_u_jac_d2_cuda(flow57, x57[:-1])
+        check(torch.equal(ur, u[:-1]) and torch.equal(Jr, J[:-1]),
+              "flow_u_jac_d2 (n 57): ragged batch differs")
+        ms = {"flow_u_jac_d2": [], "flow_u_jac": [], "flow_u_jac_d2_b2b": [], "flow_u_jac_b2b": []}
+        for name in ("flow_u_jac", "flow_u_jac_d2", "flow_u_jac_d2", "flow_u_jac"):
+            fn = d2.flow_u_jac_d2_cuda if name == "flow_u_jac_d2" else cuda_flow_jac.flow_u_jac_cuda
+            ms[name].append(time_ms(lambda: fn(flow57, x57), 20))
+            ms[name + "_b2b"].append(time_ms_b2b(lambda: fn(flow57, x57), 20))
+    nd = N57 * DIM
+    nbytes = 4 * (2 * BATCH57 * nd + BATCH57 * nd * nd + cuda_flow_jac.pack_flow_params(flow57).numel())
+    flops, _ = d2_flops(BATCH57, N57, DIM, SPSIZE, TPSIZE, False)
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return {"ms_n57_b512": statistics.mean(ms["flow_u_jac_d2"]),
+            "ms_b2b_n57_b512": statistics.mean(ms["flow_u_jac_d2_b2b"]),
+            "ms_n57_b512_turns": ms, "bound_ms_n57_b512": max(t_b, t_o),
+            "bound_by_n57_b512": "bytes" if t_b >= t_o else "operations",
+            "errors_n57_b512": e, "smem_bytes_n57": d2.flow_d2_smem_bytes(N57, DIM, flow57.cfg)}
 
 
 def phase_kernels():
@@ -566,6 +639,7 @@ def phase_kernels():
           "flow_u_jac: shared-memory budget")
     with torch.no_grad():
         ms = time_ms(lambda: cuda_flow_jac.flow_u_jac_cuda(flow, x), 20)
+        ms_b2b = time_ms_b2b(lambda: cuda_flow_jac.flow_u_jac_cuda(flow, x), 20)
         plain_ms = time_ms(lambda: cuda_flow_jac.flow_u_jac_plain(flow, x), 5)
     nbytes = 4 * (2 * BATCH * N * DIM + BATCH * nd * nd
                   + cuda_flow_jac.pack_flow_params(flow).numel())
@@ -576,7 +650,7 @@ def phase_kernels():
         "source": "coulombgas_tpu_torch/csrc/flow_jac.cu",
         "replaces": "coulombgas_tpu/ops/pallas_flow_jac.py:231",
         "max_abs_err": max(e_u, e_J), "max_abs_err_f64": max(e_u64, e_J64),
-        "tolerance": TOL_U, "ms": ms, "plain_ms": plain_ms,
+        "tolerance": TOL_U, "ms": ms, "ms_b2b": ms_b2b, "plain_ms": plain_ms,
         "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
         "library_ms": None,
     })
@@ -960,6 +1034,74 @@ def phase_train_n57():
     return counts, counts4
 
 
+def phase_routes(sweeps: int = 10):
+    """The Metropolis logp past the kernels' size limits: ``make_logp_fast``
+    left to choose, at n = 65, dim 2 (beyond the flow kernel, within the fused
+    tail) and at n = 57, dim 3 (nd 171, beyond the fused tail too: the stacked
+    Grams through chol_logdet), each with a fresh flow, random walkers and
+    occupations, thermalised and then sampled by ``sampling/mcmc.py``.  Held
+    against the same logp in plain f64 on the card at the smoke's logp
+    tolerances (5e-3 at the 99th percentile, 5e-2 at the maximum); what the
+    plain f32 version strays from f64 on the same walkers is reported beside
+    it."""
+    from coulombgas_tpu_torch.models.ferminet_jac import ferminet_apply_and_jac
+
+    results = {}
+    for tag, n, dim, Emax, B, route in (
+        ("n65_dim2", 65, 2, 36, 512, "analytic flow Jacobian + fused_logp"),
+        ("n57_dim3", 57, 3, 9, 512, "analytic flow Jacobian + stacked chol_logdet"),
+    ):
+        rng = np.random.default_rng(n)
+        L = math.sqrt(math.pi * n) if dim == 2 else (4 / 3 * math.pi * n) ** (1 / 3)
+        cfg = FermiNetConfig(DEPTH, SPSIZE, TPSIZE, L)
+        flow = init_ferminet_params(cfg, dim, torch.Generator().manual_seed(n), torch.float32, DEV)
+        flow64 = init_ferminet_params(cfg, dim, None, torch.float64, DEV)
+        flow64.load_state_dict({k: v.double() for k, v in flow.state_dict().items()})
+        idx, _ = sp_orbitals(dim, Emax)
+        tw, _ = twist_sort(idx, [0.25] * dim)
+        tw = tw[::-1].copy()
+        si = np.stack([np.sort(rng.choice(len(tw), n, replace=False)) for _ in range(B)])
+        si = torch.from_numpy(si).to(DEV)
+        x = torch.from_numpy(rng.uniform(0, L, (B, n, dim)).astype(np.float32)).to(DEV)
+        logp = make_logp_fast(tw, L)
+        name = logp.route(n, dim, cfg, DEV)
+        check(name.startswith(route), "%s: route %r, expected %r" % (tag, name, route))
+        gen = torch.Generator(DEV).manual_seed(n)
+        reset_counts()
+        x, _ = mcmc(lambda q: logp(q, flow, si), x, gen, sweeps, 0.1)  # thermalise
+        torch.cuda.synchronize()
+        t0 = time.time()
+        x, acc = mcmc(lambda q: logp(q, flow, si), x, gen, sweeps, 0.1)
+        torch.cuda.synchronize()
+        sweep_s = (time.time() - t0) / sweeps
+        counts = read_counts()
+        evals = 2 * (sweeps + 1)
+        if dim == 2:
+            ok = counts["fused_logp"] == evals and counts["chol_logdet"] == 0
+        else:
+            ok = counts["fused_logp"] == 0 and counts["chol_logdet"] == 2 * evals
+        check(ok and counts["flow_u_jac"] == 0 and counts["flow_u_jac_d2"] == 0,
+              "%s: launch counters %s for %d logp evaluations" % (tag, counts, evals))
+        check(0.05 < float(acc) < 0.95, "%s: accept rate %g out of (0.05, 0.95)" % (tag, float(acc)))
+        with torch.no_grad():
+            lp = logp(x, flow, si)
+            k32 = (2 * math.pi / L * torch.from_numpy(tw).to(DEV, torch.float32))[si]
+            u32, J32 = ferminet_apply_and_jac(flow, x)
+            lp32 = cuda_fused_logp.fused_logp_plain(u32, k32, J32, L)
+            u64, J64 = ferminet_apply_and_jac(flow64, x.double())
+            lp64 = cuda_fused_logp.fused_logp_plain(u64, k32.double(), J64, L)
+            ms = time_ms(lambda: logp(x, flow, si), 10)
+        e = {"max_abs_err_f64": max_err(lp, lp64), "p99_abs_err_f64": p99_err(lp, lp64),
+             "plain_f32_vs_f64_max": max_err(lp32, lp64), "plain_f32_vs_f64_p99": p99_err(lp32, lp64)}
+        check(bool(torch.isfinite(lp).all()) and e["max_abs_err_f64"] <= TOL_LOGP_MAX
+              and e["p99_abs_err_f64"] <= TOL_LOGP, "%s: logp vs plain f64: %s" % (tag, e))
+        results[tag] = counts
+        emit({"phase": "routes", "case": tag, "n": n, "dim": dim, "batch": B, "route": name,
+              "accept_rate": float(acc), "sweeps": sweeps, "logp_ms": ms, "sweep_s": sweep_s,
+              "errors": e, "tolerance_max_p99": [TOL_LOGP_MAX, TOL_LOGP], "launches": counts})
+    return results
+
+
 def phase_pretrain(epochs: int = 20):
     """The free-fermion pretraining on the card, with main_torch.py's settings."""
     import main_torch
@@ -1001,8 +1143,10 @@ def main():
     counts = phase_train()
     counts_sr = phase_train_sr()
     counts_n57, counts_k4 = phase_train_n57()
+    counts_routes = phase_routes()
     phase_pretrain()
-    paths = {"adam": counts, "sr": counts_sr, "n57": counts_n57, "n57_large_flow_step": counts_k4}
+    paths = {"adam": counts, "sr": counts_sr, "n57": counts_n57, "n57_large_flow_step": counts_k4,
+             **{"route_" + k: c for k, c in counts_routes.items()}}
     for row in rows:
         # each kernel's count on the path that runs it: the carried-state flow
         # kernel on the Adam path, the depth-2 closure kernels on the SR path,

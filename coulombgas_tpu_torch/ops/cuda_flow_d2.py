@@ -1,12 +1,14 @@
 """Depth-2 closure flow kernels on the GPU — hand-written CUDA.
 
 Counterparts of ``coulombgas_tpu/ops/pallas_flow_jac.py:flow_u_jac_pallas_d2``
-and ``flow_u_jac_lap_pallas_d2``.  One source (``csrc/flow_d2.cu``), the
-Laplacian as a compile-time switch: one block per walker builds a table of
-the pair features in shared memory and assembles u, J (and the flow's
-coordinate Laplacian) from the closed form of
+and ``flow_u_jac_lap_pallas_d2``.  One source (``csrc/flow_d2.cu``), two
+kernels, both assembling u, J from the closed form of
 ``models.ferminet_jac.ferminet_apply_and_jac_d2`` — no carried
-``(n, n, dim, S)`` Jacobian state.  Depth 2 only.
+``(n, n, dim, S)`` Jacobian state.  Depth 2 only.  K5 (u, J) gives each
+particle row a warp, whose lanes hold the row's pairs in registers, so its
+shared memory grows as n (n <= 64, widths <= 32).  K6 (u, J and the flow's
+coordinate Laplacian) gives one block per walker a table of the pair
+features in shared memory, which grows as n^2.
 
 Both are called outside autograd (the Metropolis logp, and the primal slot of
 the kinetic-energy engine), so neither has a backward: an input that requires
@@ -21,6 +23,7 @@ lap ``(B, nd)`` — what ``ops.cuda_fused_logp.fused_logp_cuda`` and
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -46,6 +49,7 @@ def flow_u_jac_lap_d2_plain(flow: FermiNet, x):
     return ferminet_apply_jac_lap_d2(flow, x)
 
 
+@functools.cache
 def _lib():
     lib = load_library("flow_d2")
     lib.cg_flow_d2_u_jac.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
@@ -60,17 +64,23 @@ def _lib():
 
 
 def flow_d2_smem_bytes(n: int, dim: int, cfg, lap: bool = False) -> int:
-    """Shared memory of one block as the built library states it, without or
-    with the Laplacian; -1 where dim is beyond the kernel (dim > 3)."""
+    """Shared memory of one block of K5 (``lap`` False) or K6 as the built
+    library states it; -1 where dim > 3, or for K5 n > 64 or a width > 32."""
     return _lib().cg_flow_d2_smem(n, dim, cfg.spsize, cfg.tpsize, int(lap))
 
 
-def flow_d2_fits(n: int, dim: int, cfg, lap: bool = False) -> bool:
-    """Whether the kernel takes this size: depth 2, dim <= 3, and the n
-    ceiling is shared memory — the pair table grows as n^2 (about 28 bytes a
-    pair at dim 2, 32 with the Laplacian); n = 57 at widths 16 fits either
-    way.  Asks the built library, so it needs ``nvcc``."""
-    return cfg.depth == 2 and 0 <= flow_d2_smem_bytes(n, dim, cfg, lap) <= SMEM_LIMIT_BYTES
+def flow_d2_fits(n: int, dim: int, cfg, lap: bool = False, device=None) -> bool:
+    """Whether the wrapper takes this size on ``device`` (default: CUDA):
+    depth 2 always; for the kernels also dim <= 3, for K5 (``lap`` False)
+    n <= 64 and widths <= 32, and for K6 its pair table within shared memory
+    (about 32 bytes a pair at dim 2; n = 57 at widths 16 fits).  This asks
+    the built library, so it needs ``nvcc``.  On a CPU device the wrapper
+    takes its plain version, which takes any size."""
+    if cfg.depth != 2:
+        return False
+    if device is not None and torch.device(device).type == "cpu":
+        return True
+    return 0 <= flow_d2_smem_bytes(n, dim, cfg, lap) <= SMEM_LIMIT_BYTES
 
 
 def _launch(flow: FermiNet, x, lap: bool):
@@ -94,7 +104,8 @@ def _launch(flow: FermiNet, x, lap: bool):
     if not flow_d2_fits(n, dim, cfg, lap):
         raise ValueError(
             "n = %d, dim = %d, spsize = %d, tpsize = %d is beyond the depth-2 closure "
-            "kernel (shared memory %d of %d bytes; -1: dim > 3)" % (
+            "kernel (shared memory %d of %d bytes; -1: dim > 3, or without the "
+            "Laplacian n > 64 or a width > 32)" % (
                 n, dim, cfg.spsize, cfg.tpsize,
                 flow_d2_smem_bytes(n, dim, cfg, lap), SMEM_LIMIT_BYTES))
     params = pack_flow_params(flow)

@@ -39,10 +39,13 @@ def flow_jac_smem_bytes(n: int, dim: int, cfg) -> int:
     return _lib().cg_flow_smem(n, dim, cfg.depth, cfg.spsize, cfg.tpsize)
 
 
-def flow_jac_fits(n: int, dim: int, cfg) -> bool:
-    """Whether the kernel takes this size: n <= 64 (a lane of a warp owns two
-    rows), dim <= 3, widths <= 32.  Asks the built library, so it needs
-    ``nvcc``."""
+def flow_jac_fits(n: int, dim: int, cfg, device=None) -> bool:
+    """Whether the wrapper takes this size on ``device`` (default: CUDA).
+    The kernel takes n <= 64 (a lane of a warp owns two rows), dim <= 3,
+    widths <= 32; this asks the built library, so it needs ``nvcc``.  On a
+    CPU device the wrapper takes its plain version, which takes any size."""
+    if device is not None and torch.device(device).type == "cpu":
+        return True
     return 0 <= flow_jac_smem_bytes(n, dim, cfg) <= SMEM_LIMIT_BYTES
 
 

@@ -95,11 +95,15 @@ def flow_large_smem_bytes(n: int, dim: int, S: int, C2: int) -> int:
     return _lib().cg_flow_large_smem(n, dim, S, C2)
 
 
-def flow_large_fits(n: int, dim: int, S: int, C2: int) -> bool:
-    """Whether the kernels take this size: dim <= 3, and the n ceiling is
-    shared memory, which grows as n (the per-row state of the second kernel,
-    about 4 (dim S + dim C2 + ...) floats a particle; 40 KB at n = 57, dim 2,
-    widths 16).  Asks the built library, so it needs ``nvcc``."""
+def flow_large_fits(n: int, dim: int, S: int, C2: int, device=None) -> bool:
+    """Whether the wrapper takes this size on ``device`` (default: CUDA).
+    The kernels take dim <= 3, and their n ceiling is shared memory, which
+    grows as n (the per-row state of the second kernel, about 4 (dim S +
+    dim C2 + ...) floats a particle; 40 KB at n = 57, dim 2, widths 16);
+    this asks the built library, so it needs ``nvcc``.  On a CPU device the
+    wrapper takes its plain version, which takes any size."""
+    if device is not None and torch.device(device).type == "cpu":
+        return True
     return 0 <= flow_large_smem_bytes(n, dim, S, C2) <= SMEM_LIMIT_BYTES
 
 

@@ -36,10 +36,13 @@ def fused_smem_bytes(n: int, dim: int) -> int:
     return _lib().cg_fused_logp_smem(n, dim)
 
 
-def fused_fits(n: int, dim: int) -> bool:
-    """Whether the kernel takes this size: nd <= 152 and one walker within a
-    thread block's shared memory.  Asks the built library, so it needs
-    ``nvcc``."""
+def fused_fits(n: int, dim: int, device=None) -> bool:
+    """Whether the wrapper takes this size on ``device`` (default: CUDA).
+    The kernel takes nd <= 152 with one walker within a thread block's shared
+    memory; this asks the built library, so it needs ``nvcc``.  On a CPU
+    device the wrapper takes its plain version, which takes any size."""
+    if device is not None and torch.device(device).type == "cpu":
+        return True
     return 0 <= fused_smem_bytes(n, dim) <= SMEM_LIMIT_BYTES
 
 

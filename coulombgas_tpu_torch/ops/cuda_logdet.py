@@ -24,9 +24,13 @@ launches = 0
 chol_logdet_plain = chol_logdet_ref
 
 
-def chol_logdet_fits(m: int) -> bool:
-    """Whether one m x m matrix fits a block's shared memory.  Asks the built
-    library, so it needs ``nvcc``."""
+def chol_logdet_fits(m: int, device=None) -> bool:
+    """Whether the wrapper takes an m x m matrix on ``device`` (default:
+    CUDA): for the kernel, whether one matrix fits a block's shared memory,
+    which asks the built library and so needs ``nvcc``.  On a CPU device the
+    wrapper takes its plain version, which takes any size."""
+    if device is not None and torch.device(device).type == "cpu":
+        return True
     return _lib().cg_chol_logdet_smem(m) <= SMEM_LIMIT_BYTES
 
 

@@ -166,10 +166,15 @@ def chol_logdet(A):
 
     A CUDA tensor goes to the hand-written kernel (``ops/cuda_logdet.py``),
     which raises if it cannot run; a CPU tensor goes to ``chol_logdet_ref``.
+    An m beyond the kernel's shared memory (``chol_logdet_fits``) takes
+    ``chol_logdet_ref`` on the tensor's own device, as the JAX package's
+    kernel hands an m beyond its VMEM budget to its plain elimination.
     """
-    from .cuda_logdet import chol_logdet_cuda
+    from . import cuda_logdet
 
-    return chol_logdet_cuda(A)
+    if not cuda_logdet.chol_logdet_fits(A.shape[-1], A.device):
+        return chol_logdet_ref(A)
+    return cuda_logdet.chol_logdet_cuda(A)
 
 
 def gram_logabsdet(J):

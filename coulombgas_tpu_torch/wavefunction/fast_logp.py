@@ -10,20 +10,25 @@ and needs no derivatives there:
 Counterpart of ``coulombgas_tpu/wavefunction/fast_logp.py`` with the same
 routes:
 
-  1. ``use_flow_kernel`` and ``use_fused``: the flow kernel
-     (``ops.cuda_flow_jac``) feeding the fused tail kernel
-     (``ops.cuda_fused_logp``) back to back — the main path;
-     with ``use_d2_flow`` the flow comes from the depth-2 closure kernel
+  1. the flow kernel (``ops.cuda_flow_jac``) feeding the fused tail kernel
+     (``ops.cuda_fused_logp``) back to back — the main path; with
+     ``use_d2_flow`` the flow comes from the depth-2 closure kernel
      (``ops.cuda_flow_d2``) instead, and with ``use_large_flow`` from the
      row-chunked depth-2 kernels (``ops.cuda_flow_large``), again straight
      into the fused tail (the closure kernel wins when both are asked for);
-  2. ``use_fused`` only: the plain analytic flow Jacobian feeding the fused
-     tail kernel;
-  3. neither: the plain flow Jacobian, Gram matrices by torch, and the
-     stacked log-dets through ``ops.logdet.chol_logdet`` (the third kernel).
+  2. the plain analytic flow Jacobian feeding the fused tail kernel;
+  3. the plain flow Jacobian, Gram matrices by torch, and the stacked
+     log-dets through ``ops.logdet.chol_logdet`` (the third kernel, or its
+     plain elimination beyond the kernel's shared memory).
 
-On CUDA tensors a requested kernel launches or raises; on CPU tensors every
-wrapper takes its plain version, so the same closure serves the CPU tests.
+Left to the closure (``use_fused`` and ``use_flow_kernel`` None), the route
+is chosen by size, once per shape and device, from the kernels' own answers
+as the reference chooses from ``fused_fits`` and ``MAX_FLOW_N``: the fused
+tail where ``fused_fits``, the flow kernel where it also ``flow_jac_fits``
+(the flow kernel feeds the fused tail only).  An explicit ``True`` is a
+request: the kernel launches or the call raises.  On CUDA tensors a kernel
+launches or raises; on CPU tensors every wrapper takes its plain version,
+which takes any size, so the same closure serves the CPU tests.
 """
 
 from __future__ import annotations
@@ -33,13 +38,42 @@ import torch
 
 from ..models.ferminet import FermiNet
 from ..models.ferminet_jac import ferminet_apply_and_jac
+from ..ops import cuda_flow_d2, cuda_flow_jac, cuda_flow_large, cuda_fused_logp
 from ..ops.cuda_flow_d2 import flow_u_jac_d2_cuda
 from ..ops.cuda_flow_jac import flow_u_jac_cuda
 from ..ops.cuda_flow_large import flow_u_jac_large_cuda
 from ..ops.cuda_fused_logp import fused_logp_cuda
 from ..ops.logdet import chol_logdet, gram_logabsdet, planewave_gram_embed
 
-__all__ = ["make_logp_fast"]
+__all__ = ["make_logp_fast", "choose_route"]
+
+
+def choose_route(n: int, dim: int, cfg, device, use_fused=None, use_flow_kernel=None):
+    """``(flow_kernel, fused, why)`` for walkers (., n, dim) on ``device``:
+    whether the flow kernel and the fused tail run, and why a kernel left to
+    the closure does not.  ``None`` leaves a choice to the kernels' sizes; a
+    kernel requested with ``True`` (the flow kernel requests the fused tail
+    too) raises ``ValueError`` where it does not take the size."""
+    size = "n %d, dim %d, widths %d/%d" % (n, dim, cfg.spsize, cfg.tpsize)
+    fused = use_fused if use_fused is not None else (True if use_flow_kernel else None)
+    why = ""
+    if fused is not False:
+        fits = cuda_fused_logp.fused_fits(n, dim, device)
+        if fused and not fits:
+            raise ValueError("fused_logp requested, but %s is beyond the kernel" % size)
+        if not fits:
+            why = "nd %d beyond the fused_logp kernel" % (n * dim)
+        fused = fits
+    kernel = use_flow_kernel
+    if kernel is not False and fused:
+        fits = cuda_flow_jac.flow_jac_fits(n, dim, cfg, device)
+        if kernel and not fits:
+            raise ValueError("the flow kernel was requested, but %s (depth %d) is beyond "
+                             "it" % (size, cfg.depth))
+        if not fits:
+            why = "%s beyond the flow kernel" % size
+        kernel = fits
+    return bool(kernel), fused, why
 
 
 def make_logp_fast(
@@ -47,8 +81,8 @@ def make_logp_fast(
     L: float,
     chunk: int | None = None,
     jacobian=None,
-    use_fused: bool = True,
-    use_flow_kernel: bool = True,
+    use_fused: bool | None = None,
+    use_flow_kernel: bool | None = None,
     use_large_flow: bool = False,
     use_d2_flow: bool = False,
 ):
@@ -65,18 +99,37 @@ def make_logp_fast(
     as in the JAX package.  Either needs ``use_fused`` and a depth-2 flow
     within the kernel's shared-memory budget; otherwise the call raises
     ``ValueError`` — a requested kernel launches or the call fails, nothing
-    else stands in for it.
+    else stands in for it.  ``use_fused`` and ``use_flow_kernel`` left at
+    None are chosen by size (``choose_route``); ``logp.route(n, dim, cfg,
+    device)`` names the route the closure takes there.
     """
-    if use_d2_flow and not use_fused:
+    if use_d2_flow and use_fused is False:
         raise ValueError("use_d2_flow requires use_fused")
-    if use_large_flow and not use_fused:
+    if use_large_flow and use_fused is False:
         raise ValueError("use_large_flow requires use_fused")
-    if use_flow_kernel and not use_fused:
+    if use_flow_kernel and use_fused is False:
         raise ValueError("use_flow_kernel requires use_fused")
     sp_indices = np.asarray(sp_indices)
     jacobian = jacobian or ferminet_apply_and_jac
 
     tables = {}  # the momenta 2 pi / L * sp_indices, once per device and dtype
+    routes = {}  # (flow kernel, fused tail, why) per shape, flow and device
+
+    def route_of(n, dim, cfg, device):
+        key = (n, dim, cfg, torch.device(device))
+        if key not in routes:
+            routes[key] = choose_route(n, dim, cfg, device, use_fused, use_flow_kernel)
+        return routes[key]
+
+    def route(n, dim, cfg, device) -> str:
+        """The route this closure takes for walkers (., n, dim) on ``device``."""
+        if use_d2_flow or use_large_flow:
+            head = "depth-2 closure kernel" if use_d2_flow else "row-chunked flow kernels"
+            return head + " + fused_logp"
+        kernel, fused, why = route_of(n, dim, cfg, device)
+        name = "%s + %s" % ("flow kernel" if kernel else "analytic flow Jacobian",
+                            "fused_logp" if fused else "stacked chol_logdet")
+        return name + (" (%s)" % why if why else "")
 
     def logp_impl(x, flow: FermiNet, state_indices):
         B, n, dim = x.shape
@@ -85,18 +138,26 @@ def make_logp_fast(
             tables[x.device, x.dtype] = 2 * np.pi / L * torch.as_tensor(
                 sp_indices, dtype=x.dtype, device=x.device)
         k = tables[x.device, x.dtype][state_indices]
-        if use_d2_flow:
-            # raises for depth != 2 or a size beyond the kernel's budget
+        cfg = flow.cfg
+        if use_d2_flow:  # a request: the kernel takes the size or this raises
+            if not cuda_flow_d2.flow_d2_fits(n, dim, cfg, device=x.device):
+                raise ValueError("use_d2_flow: the depth-2 closure kernel does not take "
+                                 "depth %d, n %d, dim %d, widths %d/%d" % (
+                                     cfg.depth, n, dim, cfg.spsize, cfg.tpsize))
             u, J = flow_u_jac_d2_cuda(flow, x)
             return fused_logp_cuda(u, k, J, L)
         if use_large_flow:
-            u, J = flow_u_jac_large_cuda(flow, x)  # raises as the closure kernel does
+            if not cuda_flow_large.flow_large_fits(n, dim, cfg.spsize, cfg.tpsize, x.device):
+                raise ValueError("use_large_flow: the row-chunked kernels do not take n %d, "
+                                 "dim %d, widths %d/%d" % (n, dim, cfg.spsize, cfg.tpsize))
+            u, J = flow_u_jac_large_cuda(flow, x)  # raises for depth != 2
             return fused_logp_cuda(u, k, J, L)
-        if use_flow_kernel:
+        flow_kernel, fused, _ = route_of(n, dim, cfg, x.device)
+        if flow_kernel:
             u, J = flow_u_jac_cuda(flow, x)
             return fused_logp_cuda(u, k, J, L)
         u, J = jacobian(flow, x)
-        if use_fused:
+        if fused:
             return fused_logp_cuda(u, k, J, L)
         ang = torch.einsum("bnd,bmd->bnm", u, k)
         c = L ** (-dim / 2)
@@ -120,4 +181,5 @@ def make_logp_fast(
             for s in range(0, B, chunk)
         ])
 
+    logp.route = route
     return logp

@@ -338,8 +338,12 @@ def build_trainer(args, out_folder=None) -> Trainer:
     logpsi = make_logpsi_fast(flow_jac, sp_indices_twist, L)
     # Metropolis density: the flow kernel feeding the fused log-det tail kernel
     # (--mc_d2_kernel: the depth-2 closure kernel in the flow kernel's place)
+    # Past a kernel's size limit the closure takes the reference's route
+    # around it; the route is named here, so that nothing is chosen silently.
     logp = make_logp_fast(sp_indices_twist, L, chunk=args.mc_microbatch or None,
                           jacobian=flow_jac, use_d2_flow=args.mc_d2_kernel)
+    print("logp route: %s%s" % (logp.route(n, dim, flow_cfg, device),
+                                " (plain versions on the CPU)" if device.type == "cpu" else ""))
 
     # ---- Ewald -------------------------------------------------------------
     G = kpoints(dim, args.Gmax)
@@ -374,7 +378,7 @@ def build_trainer(args, out_folder=None) -> Trainer:
         # the primal flow + Jacobian + Laplacian of the kinetic energy from the
         # depth-2 closure kernel, one launch for the batch; an explicit
         # request, so it engages or the run ends here
-        if device.type == "cuda" and not flow_d2_fits(n, dim, flow_cfg, lap=True):
+        if not flow_d2_fits(n, dim, flow_cfg, lap=True, device=device):
             raise SystemExit(
                 "main_torch.py: --acc_d2_kernel requested but the depth-2 closure kernel "
                 "cannot engage: n = %d, dim = %d, widths %d/%d exceed its shared memory"

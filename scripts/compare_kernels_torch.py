@@ -1,22 +1,21 @@
-"""Times two versions of the Metropolis logp kernels K1 and K2 in turns on one GPU.
+"""Times two versions of the Metropolis logp kernels K1, K2 and K5 in turns on one GPU.
 
-    python3 scripts/compare_kernels_torch.py --other DIR [--out FILE]
+    python3 scripts/compare_kernels_torch.py --other DIR [DIR ...] [--out FILE]
 
-DIR holds the other version's ``flow_jac.cu``, ``fused_logp.cu`` and
-``chol.cuh`` (for example written there by ``git show
-<commit>:coulombgas_tpu_torch/csrc/<file>``).  Both versions are built with
-the same ``nvcc`` flags, the package's into ``build/`` and the other into
-``build/other/``, all sources in parallel.  At the two shapes the main paths
-run — n = 29, batch 2048 (``chip_smoke.make_inputs``) and n = 57, batch 512
-on the checked-in checkpoint's weights and walkers (``chip_smoke.load_n57``)
-— each kernel is timed in the order other, this, this, other (median of 20
-launches by CUDA events each), and the two versions' outputs on the same
-inputs are compared.  Prints one JSON line per shape and kernel, and the
-``nvidia-smi`` name and power limit; ``--out`` also writes them to a file.
-A flow source of the earlier two-launch design (a separate forward kernel
-joined to the Jacobian kernel by a ``sig`` scratch, one more pointer in
-``cg_flow_u_jac``) is called with that scratch; the branch is kept so that
-the one-launch K1 can be timed against that design.  Needs a CUDA device.
+Each DIR holds another version's sources, any of ``flow_jac.cu`` (K1),
+``fused_logp.cu`` with the headers it includes (K2: ``chol.cuh``,
+``chol_blocked.cuh``) and ``flow_d2.cu`` (K5), for example written there by
+``git show <commit>:coulombgas_tpu_torch/csrc/<file>``.  Both versions are
+built with the same ``nvcc`` flags, the package's into ``build/`` and the
+other into ``build/other/``, all sources in parallel.  At the two shapes the
+main paths run — n = 29, batch 2048 (``chip_smoke.make_inputs``) and n = 57,
+batch 512 on the checked-in checkpoint's weights and walkers
+(``chip_smoke.load_n57``) — each kernel of DIR is timed in the order other,
+this, this, other (median of 20 launches by CUDA events each), and the two
+versions' outputs on the same inputs are compared; K5's lines also time the
+package's K1 on the same walkers.  Prints one JSON line per shape and
+kernel, and the ``nvidia-smi`` name and power limit; ``--out`` also writes
+them to a file.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -33,54 +32,69 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
-from coulombgas_tpu_torch.ops import _build, cuda_flow_jac, cuda_fused_logp  # noqa: E402
+from coulombgas_tpu_torch.ops import _build, cuda_flow_d2, cuda_flow_jac, cuda_fused_logp  # noqa: E402
 
 
-def build_other(src_dir: str) -> dict:
-    """Build the other version's two libraries; returns their ctypes handles
-    and ptxas lines."""
-    out_dir = os.path.join(_build.BUILD_DIR, "other")
+def build_other(src_dir: str, tag: str = "other", rebuild_this: bool = True) -> dict:
+    """Build another version's libraries, those of DIR's sources, into
+    ``build/<tag>/``, and (``rebuild_this``) the package's of the same names
+    beside them; returns their entry points as ctypes functions and the
+    ptxas lines of both."""
+    out_dir = os.path.join(_build.BUILD_DIR, tag)
     os.makedirs(out_dir, exist_ok=True)
+    names = [nm for nm in ("flow_jac", "fused_logp", "flow_d2")
+             if os.path.isfile(os.path.join(src_dir, nm + ".cu"))]
     procs = {}
-    for name in ("flow_jac", "fused_logp"):
+    for name in names:
         cmd = _build._command(name)
         cmd[cmd.index("-o") + 1] = os.path.join(out_dir, "lib%s.so" % name)
         cmd[-1] = os.path.join(src_dir, name + ".cu")
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
-    _build.build_all(("flow_jac", "fused_logp"), force=True)
+    this_logs = _build.build_all(names, force=True) if rebuild_this else {}
     libs, ptxas = {}, {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed for the other %s:\n%s" % (name, log))
-        ptxas[name] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        ptxas[name] = [ln.strip() for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln or "entry function" in ln]
         libs[name] = ctypes.CDLL(os.path.join(out_dir, "lib%s.so" % name))
-    with open(os.path.join(src_dir, "flow_jac.cu")) as f:
-        takes_sig = "cg_flow_fwd_kernel" in f.read()  # the two-launch design
-    f = libs["flow_jac"].cg_flow_u_jac
-    f.argtypes = [ctypes.c_void_p] * (5 if takes_sig else 4) + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p]
-    f.restype = ctypes.c_int
-    g = libs["fused_logp"].cg_fused_logp
-    g.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    g.restype = ctypes.c_int
-    return {"flow": f, "fused": g, "takes_sig": takes_sig, "ptxas": ptxas}
+    fns = {"ptxas": ptxas, "ptxas_this": {
+        name: [ln.strip() for ln in log.splitlines()
+               if "registers" in ln or "spill" in ln or "entry function" in ln]
+        for name, log in this_logs.items()}}
+    if "flow_jac" in libs:
+        fns["flow"] = libs["flow_jac"].cg_flow_u_jac
+        fns["flow"].argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p]
+    if "fused_logp" in libs:
+        fns["fused"] = libs["fused_logp"].cg_fused_logp
+        fns["fused"].argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_void_p]
+    if "flow_d2" in libs:
+        fns["d2"] = libs["flow_d2"].cg_flow_d2_u_jac
+        fns["d2"].argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_void_p]
+    for key in ("flow", "fused", "d2"):
+        if key in fns:
+            fns[key].restype = ctypes.c_int
+    return fns
 
 
-def other_flow(lib, flow, x):
+def other_flow(lib, flow, x, key="flow"):
+    """The other K1 (``key="flow"``) or K5 (``key="d2"``) on x."""
     B, n, dim = x.shape
     cfg = flow.cfg
     params = cuda_flow_jac.pack_flow_params(flow)
     u = torch.empty_like(x)
     J = torch.empty(B, n * dim, n * dim, device=x.device)
-    ptrs = [x.data_ptr(), params.data_ptr()]
-    if lib["takes_sig"]:
-        sig = torch.empty(B, cfg.depth, n, cfg.spsize, device=x.device)
-        ptrs.append(sig.data_ptr())
-    code = lib["flow"](*ptrs, u.data_ptr(), J.data_ptr(), B, n, dim, cfg.depth, cfg.spsize,
-                       cfg.tpsize, float(cfg.L), torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(code, "other flow_u_jac")
+    args = [x.data_ptr(), params.data_ptr(), u.data_ptr(), J.data_ptr(), B, n, dim]
+    if key == "flow":
+        args.append(cfg.depth)
+    code = lib[key](*args, cfg.spsize, cfg.tpsize, float(cfg.L),
+                    torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(code, "other " + key)
     return u, J
 
 
@@ -94,49 +108,81 @@ def other_fused(lib, u, kvec, J, L):
 
 
 def turns(fn_other, fn_this, reps: int = 20) -> dict:
-    ms = {"other": [], "this": []}
+    """ms per call of each version in the order other, this, this, other:
+    ``ms`` of calls timed one by one (``chip_smoke.time_ms``), ``b2b`` of
+    calls run back to back (``chip_smoke.time_ms_b2b``)."""
+    ms = {"other": [], "this": [], "other_b2b": [], "this_b2b": []}
     for who in ("other", "this", "this", "other"):
-        ms[who].append(cs.time_ms(fn_other if who == "other" else fn_this, reps))
+        fn = fn_other if who == "other" else fn_this
+        ms[who].append(cs.time_ms(fn, reps))
+        ms[who + "_b2b"].append(cs.time_ms_b2b(fn, reps))
     return ms
+
+
+def compare(lib, case29, case57) -> list:
+    """One JSON line per shape and kernel of ``lib``: the two versions in
+    turns, their outputs against each other."""
+    lines = []
+    with torch.no_grad():
+        for tag, (L, flow, x, kvec) in (("n29_b2048", case29), ("n57_b512", case57)):
+            B, n, _ = x.shape
+            u, J = cuda_flow_jac.flow_u_jac_cuda(flow, x)
+            if "flow" in lib:
+                uo, Jo = other_flow(lib, flow, x)
+                lines.append({
+                    "shape": tag, "kernel": "flow_u_jac",
+                    "ms": turns(lambda: other_flow(lib, flow, x),
+                                lambda: cuda_flow_jac.flow_u_jac_cuda(flow, x)),
+                    "u_max_abs_diff": cs.max_err(u, uo), "J_max_abs_diff": cs.max_err(J, Jo),
+                    "bound_ms": cs.flow_flops(B, n, cs.DIM, cs.DEPTH, cs.SPSIZE, cs.TPSIZE)
+                    / cs.PEAK_F32_FLOPS * 1e3})
+            if "d2" in lib:
+                u5, J5 = cuda_flow_d2.flow_u_jac_d2_cuda(flow, x)
+                uo, Jo = other_flow(lib, flow, x, "d2")
+                lines.append({
+                    "shape": tag, "kernel": "flow_u_jac_d2",
+                    "ms": turns(lambda: other_flow(lib, flow, x, "d2"),
+                                lambda: cuda_flow_d2.flow_u_jac_d2_cuda(flow, x)),
+                    "flow_u_jac_ms": cs.time_ms(lambda: cuda_flow_jac.flow_u_jac_cuda(flow, x), 20),
+                    "flow_u_jac_ms_b2b": cs.time_ms_b2b(
+                        lambda: cuda_flow_jac.flow_u_jac_cuda(flow, x), 20),
+                    "u_max_abs_diff": cs.max_err(u5, uo), "J_max_abs_diff": cs.max_err(J5, Jo),
+                    "vs_flow_u_jac_u_J": [cs.max_err(u5, u), cs.max_err(J5, J)],
+                    "bound_ms": cs.d2_flops(B, n, cs.DIM, cs.SPSIZE, cs.TPSIZE, False)[0]
+                    / cs.PEAK_F32_FLOPS * 1e3})
+            if "fused" in lib:
+                lp = cuda_fused_logp.fused_logp_cuda(u, kvec, J, L)
+                lpo = other_fused(lib, u, kvec, J, L)
+                lp64 = cuda_fused_logp.fused_logp_plain(u.double(), kvec.double(), J.double(), L)
+                torch.cuda.synchronize()
+                lines.append({
+                    "shape": tag, "kernel": "fused_logp",
+                    "ms": turns(lambda: other_fused(lib, u, kvec, J, L),
+                                lambda: cuda_fused_logp.fused_logp_cuda(u, kvec, J, L)),
+                    "logp_max_abs_diff": cs.max_err(lp, lpo),
+                    "logp_p99_abs_diff": cs.p99_err(lp, lpo),
+                    "this_vs_plain_f64_max_p99": [cs.max_err(lp, lp64), cs.p99_err(lp, lp64)],
+                    "other_vs_plain_f64_max_p99": [cs.max_err(lpo, lp64), cs.p99_err(lpo, lp64)],
+                    "bound_ms": max(cs.fused_bound(B, n, cs.DIM))})
+    return lines
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--other", required=True)
+    ap.add_argument("--other", required=True, nargs="+")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     smi = cs.smi_line()
-    lib = build_other(args.other)
-    lines = [{"nvidia_smi": smi, "other": args.other, "other_takes_sig": lib["takes_sig"],
-              "ptxas_other": lib["ptxas"]}]
+    libs = [build_other(d, "other%d" % k, k == 0) for k, d in enumerate(args.other)]
     L29, _, flow29, x29, kvec29, _, _ = cs.make_inputs()
     L57, flow57, x57 = cs.load_n57()
     kvec57 = cs.n57_kvec()
-    with torch.no_grad():
-        for tag, L, flow, x, kvec in (("n29_b2048", L29, flow29, x29, kvec29),
-                                      ("n57_b512", L57, flow57, x57, kvec57)):
-            u, J = cuda_flow_jac.flow_u_jac_cuda(flow, x)
-            uo, Jo = other_flow(lib, flow, x)
-            lp = cuda_fused_logp.fused_logp_cuda(u, kvec, J, L)
-            lpo = other_fused(lib, u, kvec, J, L)
-            lp64 = cuda_fused_logp.fused_logp_plain(u.double(), kvec.double(), J.double(), L)
-            torch.cuda.synchronize()
-            B, n, _ = x.shape
-            lines.append({
-                "shape": tag, "kernel": "flow_u_jac",
-                "ms": turns(lambda: other_flow(lib, flow, x),
-                            lambda: cuda_flow_jac.flow_u_jac_cuda(flow, x)),
-                "u_max_abs_diff": cs.max_err(u, uo), "J_max_abs_diff": cs.max_err(J, Jo),
-                "bound_ms": cs.flow_flops(B, n, cs.DIM, cs.DEPTH, cs.SPSIZE, cs.TPSIZE)
-                / cs.PEAK_F32_FLOPS * 1e3})
-            lines.append({
-                "shape": tag, "kernel": "fused_logp",
-                "ms": turns(lambda: other_fused(lib, u, kvec, J, L),
-                            lambda: cuda_fused_logp.fused_logp_cuda(u, kvec, J, L)),
-                "logp_max_abs_diff": cs.max_err(lp, lpo), "logp_p99_abs_diff": cs.p99_err(lp, lpo),
-                "this_vs_plain_f64_max_p99": [cs.max_err(lp, lp64), cs.p99_err(lp, lp64)],
-                "other_vs_plain_f64_max_p99": [cs.max_err(lpo, lp64), cs.p99_err(lpo, lp64)],
-                "bound_ms": max(cs.fused_bound(B, n, cs.DIM))})
+    lines = []
+    for other, lib in zip(args.other, libs):
+        lines.append({"nvidia_smi": smi, "other": other, "ptxas_other": lib["ptxas"],
+                      "ptxas_this": lib["ptxas_this"]})
+        lines += compare(lib, (L29, flow29, x29, kvec29), (L57, flow57, x57, kvec57))
+
     for line in lines:
         print(json.dumps(line), flush=True)
     if args.out:

@@ -5,6 +5,8 @@ back in interpret mode (f32, atol 5e-3 as in tests/test_flow_jac_pallas.py).
 On CPU tensors every kernel wrapper of the port takes its plain version.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -94,10 +96,18 @@ def test_logp_custom_jacobian_and_unported_options():
         from coulombgas_tpu_torch.models.ferminet_jac import ferminet_apply_and_jac
         return ferminet_apply_and_jac(flow_, x_)
 
+    # the defaults leave both choices to the closure (chosen by size)
+    defaults = inspect.signature(make_logp_fast).parameters
+    assert defaults["use_fused"].default is None and defaults["use_flow_kernel"].default is None
     a = make_logp_fast(sp, cfg.L, jacobian=jac, use_flow_kernel=False)(t(x), flow, t(si))
     b = make_logp_fast(sp, cfg.L)(t(x), flow, t(si))
     assert calls == [tuple(x.shape)]
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12, atol=1e-12)
+    # on CPU tensors every plain version takes the size: the main route, as
+    # an explicit request of both kernels gives
+    e = make_logp_fast(sp, cfg.L, jacobian=jac, use_fused=True, use_flow_kernel=True)
+    np.testing.assert_array_equal(e(t(x), flow, t(si)).numpy(), b.numpy())
+    assert calls == [tuple(x.shape)]
     # the row-chunked depth-2 kernels (their plain version on CPU tensors)
     c = make_logp_fast(sp, cfg.L, use_large_flow=True)(t(x), flow, t(si))
     np.testing.assert_allclose(c.numpy(), b.numpy(), rtol=1e-10, atol=1e-10)
