@@ -16,11 +16,14 @@ exit code:
            row-chunked kernels also at n = 57, batch 512, on the trained
            weights and walkers of the checked-in n = 57 checkpoint, with the
            carried-state kernel timed beside them there, the depth-2
-           closure kernel there too (against both plain versions and the
-           carried-state kernel, the two timed in turns), and the fused tail
-           on the carried-state kernel's (u, J) there; the fused tail also
-           with one zero column of J at a panel's first, middle and last
-           column;
+           closure kernels there too (against both plain versions, K5 also
+           against the carried-state kernel, the three timed in turns), and
+           the fused tail on the carried-state kernel's (u, J) there; the
+           fused tail also with one zero column of J at a panel's first,
+           middle and last column; the depth-2 closure kernels' refusals of
+           n 65 and a width of 48; the batched Cholesky log-det beside
+           torch.linalg.cholesky also at the accumulate's shape and the
+           stacked route's (m 114 and 171);
   train    two Adam epochs through main_torch.py's own functions at the
            default width, with the launch counters read around them, then one
            sample step on the route that uses the third kernel;
@@ -44,8 +47,8 @@ exit code:
            mpmath value.
 
 The line before the last lists every kernel with its launches on the main
-path, its error, its time and its bound; K1 and K5 also with the time of
-calls run back to back (``ms_b2b``), which leaves out their wrappers' host
+path, its error, its time and its bound; K1, K5 and K6 also with the time
+of calls run back to back (``ms_b2b``), which leaves out their wrappers' host
 work.  The last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device; exits non-zero without.
 """
@@ -194,13 +197,27 @@ def phase_build():
     logs = _build.build_all(force=True)
     for name in _build.KERNEL_SOURCES:  # load now so that a bad library fails here
         _build.load_library(name)
-    ptxas = {}
-    for name, log in logs.items():
-        ptxas[name] = [ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln or "entry function" in ln][:40]
+    ptxas = {name: ptxas_lines(log) for name, log in logs.items()}
+    # the depth-2 closure kernels' dynamic shared memory, K5 and K6
+    big = FermiNetConfig(DEPTH, SPSIZE, TPSIZE, 1.0)
+    smem = {"%s_n%d" % (k, n): cuda_flow_d2.flow_d2_smem_bytes(n, DIM, big, k == "K6")
+            for k in ("K5", "K6") for n in (N, N57)}
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
           "sources": ["coulombgas_tpu_torch/csrc/%s.cu" % s for s in _build.KERNEL_SOURCES],
-          "ptxas": ptxas})
+          "ptxas": ptxas, "flow_d2_smem_bytes": smem})
+
+
+def ptxas_lines(log: str) -> list:
+    """One line per compiled kernel from ``nvcc -Xptxas -v``: its entry
+    function, then its stack, spills, registers and static shared memory."""
+    out = []
+    for ln in log.splitlines():
+        ln = ln.strip()
+        if "Compiling entry function" in ln:
+            out.append(ln.split("'")[1])
+        elif out and ("spill" in ln or "registers" in ln):
+            out[-1] += " | " + ln.replace("ptxas info    : ", "")
+    return out
 
 
 def make_inputs(seed: int = 0):
@@ -495,14 +512,25 @@ def kernels_d2(L, cfg, flow, flow64, x, u1, J1):
         check(e[0] <= TOL_U and e[1] <= TOL_UJ and e[2] <= TOL_LAP and e[3] <= TOL_U
               and e[4] <= TOL_UJ,
               "flow d2 kernels (n %d, dim %d, widths %d/%d) vs plain: %s" % (n, dim, S, T, e))
-    # the shared-memory budget, as the built library states it
+    # the shared-memory budget, as the built library states it: O(n S) for
+    # both kernels, K6 at n 57 under 64 KB
     big = FermiNetConfig(DEPTH, SPSIZE, TPSIZE, L)
     check(all(d2.flow_d2_fits(n, DIM, big, lap) for n in (N, 57) for lap in (False, True))
-          and d2.flow_d2_smem_bytes(57, DIM, big, True) > d2.flow_d2_smem_bytes(57, DIM, big)
-          > d2.flow_d2_smem_bytes(N, DIM, big)
-          and not d2.flow_d2_fits(100, DIM, big) and not d2.flow_d2_fits(N, 4, big)
+          and 64 * 1024 > d2.flow_d2_smem_bytes(57, DIM, big, True)
+          > d2.flow_d2_smem_bytes(57, DIM, big) > d2.flow_d2_smem_bytes(N, DIM, big)
+          and not any(d2.flow_d2_fits(n, dim, big, lap) for n, dim in ((65, DIM), (100, DIM), (N, 4))
+                      for lap in (False, True))
           and not d2.flow_d2_fits(N, DIM, FermiNetConfig(3, SPSIZE, TPSIZE, L)),
           "flow d2 kernels: shared-memory budget")
+    # K6 refuses what it does not take: a width of 48, n = 65
+    for what, cg, n_r in (("width 48", FermiNetConfig(DEPTH, 48, TPSIZE, L), N),
+                          ("n 65", big, 65)):
+        fr = init_ferminet_params(cg, DIM, None, torch.float32, DEV)
+        try:
+            d2.flow_u_jac_lap_d2_cuda(fr, L * torch.rand(4, n_r, DIM, device=DEV))
+            check(False, "flow_u_jac_lap_d2 accepted %s" % what)
+        except ValueError:
+            pass
     try:  # a requested kernel launches or raises: depth 3 is refused
         d2.flow_u_jac_d2_cuda(init_ferminet_params(
             FermiNetConfig(3, SPSIZE, TPSIZE, L), DIM, None, torch.float32, DEV), x[:4])
@@ -534,56 +562,75 @@ def kernels_d2(L, cfg, flow, flow64, x, u1, J1):
             "library_ms": None, "f32_operations": flops, "transcendentals": trans,
             "bytes": nbytes,
         })
+        rows[-1]["smem_bytes"] = d2.flow_d2_smem_bytes(N, DIM, cfg, lap_on)
         if lap_on:
             rows[-1].update({"lap_abs_err": e32[2], "lap_abs_err_f64": e64[2],
                              "lap_max_abs": float(lap64.abs().max()), "tolerance_lap": TOL_LAP})
         else:
             rows[-1].update({"abs_err_vs_flow_u_jac": max(e_k1),
                              "replaces_also": ["coulombgas_tpu/ops/pallas_flow_jac.py:1062",
-                                               "coulombgas_tpu/ops/pallas_flow_jac.py:1125"],
-                             "smem_bytes": d2.flow_d2_smem_bytes(N, DIM, cfg)})
-            rows[-1].update(n57)
+                                               "coulombgas_tpu/ops/pallas_flow_jac.py:1125"]})
+        rows[-1].update(n57[int(lap_on)])
         rows[-1]["coincident_abs_err"] = max(e_co)
     return rows
 
 
 def kernel_d2_n57():
-    """K5 at the production shape n = 57, batch 512, on the checked-in
+    """K5 and K6 at the production shape n = 57, batch 512, on the checked-in
     checkpoint's trained weights and walkers, beside K1 on the same walkers:
-    errors against both plain versions and K1, a ragged batch, and the two
-    kernels timed in turns (K1, K5, K5, K1)."""
+    errors against both plain versions (K5 also against K1), a ragged batch,
+    and the kernels timed in turns (K1, K5, K6, K6, K5, K1).  Returns the
+    extra fields of K5's row and of K6's."""
     d2 = cuda_flow_d2
     L57, flow57, x57 = load_n57()
     flow64 = init_ferminet_params(flow57.cfg, DIM, None, torch.float64, DEV)
     flow64.load_state_dict({k: v.double() for k, v in flow57.state_dict().items()})
     with torch.no_grad():
         u, J = d2.flow_u_jac_d2_cuda(flow57, x57)
+        ul, Jl, lap = d2.flow_u_jac_lap_d2_cuda(flow57, x57)
         u1, J1 = cuda_flow_jac.flow_u_jac_cuda(flow57, x57)
         torch.cuda.synchronize()
-        u32, J32 = d2.flow_u_jac_d2_plain(flow57, x57)
-        u64, J64 = d2.flow_u_jac_d2_plain(flow64, x57.double())
+        u32, J32, lap32 = d2.flow_u_jac_lap_d2_plain(flow57, x57)
+        u64, J64, lap64 = d2.flow_u_jac_lap_d2_plain(flow64, x57.double())
         e = {"f32": (max_err(u, u32), max_err(J, J32)), "f64": (max_err(u, u64), max_err(J, J64)),
              "flow_u_jac": (max_err(u, u1), max_err(J, J1))}
         for ref, (eu, eJ) in e.items():  # u reaches L = 13.4 here: its f32 ulp is 1e-6
             check(eu <= TOL_U and eJ <= TOL_UJ,
                   "flow_u_jac_d2 (n 57, checkpoint) vs %s: u %g J %g" % (ref, eu, eJ))
+        e6 = {"f32": [max_err(a, b) for a, b in zip((ul, Jl, lap), (u32, J32, lap32))],
+              "f64": [max_err(a, b) for a, b in zip((ul, Jl, lap), (u64, J64, lap64))]}
+        for ref, (eu, eJ, el) in e6.items():
+            check(eu <= TOL_U and eJ <= TOL_UJ and el <= TOL_LAP,
+                  "flow_u_jac_lap_d2 (n 57, checkpoint) vs %s: u %g J %g lap %g" % (ref, eu, eJ, el))
         ur, Jr = d2.flow_u_jac_d2_cuda(flow57, x57[:-1])
         check(torch.equal(ur, u[:-1]) and torch.equal(Jr, J[:-1]),
               "flow_u_jac_d2 (n 57): ragged batch differs")
-        ms = {"flow_u_jac_d2": [], "flow_u_jac": [], "flow_u_jac_d2_b2b": [], "flow_u_jac_b2b": []}
-        for name in ("flow_u_jac", "flow_u_jac_d2", "flow_u_jac_d2", "flow_u_jac"):
-            fn = d2.flow_u_jac_d2_cuda if name == "flow_u_jac_d2" else cuda_flow_jac.flow_u_jac_cuda
-            ms[name].append(time_ms(lambda: fn(flow57, x57), 20))
-            ms[name + "_b2b"].append(time_ms_b2b(lambda: fn(flow57, x57), 20))
+        got = d2.flow_u_jac_lap_d2_cuda(flow57, x57[:-1])
+        check(all(torch.equal(a, b[:-1]) for a, b in zip(got, (ul, Jl, lap))),
+              "flow_u_jac_lap_d2 (n 57): ragged batch differs")
+        fns = {"flow_u_jac": cuda_flow_jac.flow_u_jac_cuda, "flow_u_jac_d2": d2.flow_u_jac_d2_cuda,
+               "flow_u_jac_lap_d2": d2.flow_u_jac_lap_d2_cuda}
+        ms = {k: [] for name in fns for k in (name, name + "_b2b")}
+        for name in ("flow_u_jac", "flow_u_jac_d2", "flow_u_jac_lap_d2", "flow_u_jac_lap_d2",
+                     "flow_u_jac_d2", "flow_u_jac"):
+            ms[name].append(time_ms(lambda: fns[name](flow57, x57), 20))
+            ms[name + "_b2b"].append(time_ms_b2b(lambda: fns[name](flow57, x57), 20))
+        plain6_ms = time_ms(lambda: d2.flow_u_jac_lap_d2_plain(flow57, x57), 3)
     nd = N57 * DIM
-    nbytes = 4 * (2 * BATCH57 * nd + BATCH57 * nd * nd + cuda_flow_jac.pack_flow_params(flow57).numel())
-    flops, _ = d2_flops(BATCH57, N57, DIM, SPSIZE, TPSIZE, False)
-    t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    return {"ms_n57_b512": statistics.mean(ms["flow_u_jac_d2"]),
-            "ms_b2b_n57_b512": statistics.mean(ms["flow_u_jac_d2_b2b"]),
-            "ms_n57_b512_turns": ms, "bound_ms_n57_b512": max(t_b, t_o),
-            "bound_by_n57_b512": "bytes" if t_b >= t_o else "operations",
-            "errors_n57_b512": e, "smem_bytes_n57": d2.flow_d2_smem_bytes(N57, DIM, flow57.cfg)}
+    nparams = cuda_flow_jac.pack_flow_params(flow57).numel()
+    out = []
+    for name, lap_on, errs in (("flow_u_jac_d2", False, e), ("flow_u_jac_lap_d2", True, e6)):
+        nbytes = 4 * (2 * BATCH57 * nd + BATCH57 * nd * nd + nparams + (BATCH57 * nd if lap_on else 0))
+        flops, _ = d2_flops(BATCH57, N57, DIM, SPSIZE, TPSIZE, lap_on)
+        t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+        out.append({"ms_n57_b512": statistics.mean(ms[name]),
+                    "ms_b2b_n57_b512": statistics.mean(ms[name + "_b2b"]),
+                    "ms_n57_b512_turns": ms, "bound_ms_n57_b512": max(t_b, t_o),
+                    "bound_by_n57_b512": "bytes" if t_b >= t_o else "operations",
+                    "errors_n57_b512": errs,
+                    "smem_bytes_n57": d2.flow_d2_smem_bytes(N57, DIM, flow57.cfg, lap_on)})
+    out[1].update({"plain_ms_n57_b512": plain6_ms, "lap_max_abs_n57": float(lap64.abs().max())})
+    return out
 
 
 def phase_kernels():
@@ -778,13 +825,48 @@ def phase_kernels():
         "p99_abs_err_f64": q64, "tolerance": 2 * TOL_LOGP_MAX, "tolerance_p99": 2 * TOL_LOGP,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
-        "library_ms": library_ms,
+        "library_ms": library_ms, "other_shapes": k3_shapes(J),
     })
     emit({"phase": "kernels", "shapes": {"n": N, "dim": DIM, "depth": DEPTH, "spsize": SPSIZE,
                                          "tpsize": TPSIZE, "batch": BATCH, "k3_batch": K3_BATCH,
                                          "m": nd},
           "kernels": rows})
     return rows
+
+
+def k3_shapes(J):
+    """K3 beside ``torch.linalg.cholesky`` + log-diag, in turns (K3, library,
+    library, K3), at the accumulate's shape (J J^T of the main path, batch
+    2048, m 58) and at the stacked route's past K2 (n 57, dim 3, batch 512:
+    the plane-wave Gram embedding, m 114, and J's Gram, m 171; random SPD
+    matrices of those sizes)."""
+    gen = torch.Generator(DEV).manual_seed(3)
+    out = {}
+    for tag, B, m in (("accumulate_b2048_m58", BATCH, N * DIM), ("stacked_b512_m114", 512, 114),
+                      ("stacked_b512_m171", 512, 171)):
+        if m == N * DIM:
+            A = torch.einsum("bij,bkj->bik", J, J).contiguous()
+        else:
+            X = torch.randn(B, m, m, device=DEV, generator=gen)
+            A = (X @ X.mT / m + 0.5 * torch.eye(m, device=DEV)).contiguous()
+        ld = cuda_logdet.chol_logdet_cuda(A)
+        ld64 = cuda_logdet.chol_logdet_plain(A.double())
+        err = max_err(ld, ld64)
+        check(err <= 2 * TOL_LOGP_MAX, "chol_logdet at B %d, m %d vs plain f64: %g" % (B, m, err))
+
+        def lib():
+            return 2 * torch.linalg.cholesky(A).diagonal(dim1=-2, dim2=-1).log().sum(-1)
+
+        ms = {"k3": [], "library": []}
+        for who in ("k3", "library", "library", "k3"):
+            ms[who].append(time_ms(lib if who == "library" else
+                                   (lambda: cuda_logdet.chol_logdet_cuda(A)), 20))
+        t_b, t_o = 4 * B * (m * m + 1) / PEAK_BYTES_PER_S * 1e3, B * m**3 / 3 / PEAK_F32_FLOPS * 1e3
+        out[tag] = {"batch": B, "m": m, "ms": statistics.mean(ms["k3"]),
+                    "library_ms": statistics.mean(ms["library"]), "turns": ms,
+                    "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+                    "max_abs_err_f64": err}
+    return out
 
 
 def reset_counts():

@@ -6,9 +6,9 @@
 //                      lap (B, nd)     lap[(i,b)] = sum_{l,a} d^2 u[i][b] / d x[l][a]^2
 //
 // Replaces: coulombgas_tpu/ops/pallas_flow_jac.py, flow_u_jac_pallas_d2
-// (kernel bodies _d2_tp_kernel, _d2_G_kernel, _d2_J_kernel) and
-// flow_u_jac_lap_pallas_d2 (_d2_kernel with emit_lap).  Same mathematics as the
-// plain versions models/ferminet_jac.py:ferminet_apply_and_jac_d2 and
+// (K5: kernel bodies _d2_tp_kernel, _d2_G_kernel, _d2_J_kernel) and
+// flow_u_jac_lap_pallas_d2 (K6: _d2_kernel with emit_lap).  Same mathematics
+// as the plain versions models/ferminet_jac.py:ferminet_apply_and_jac_d2 and
 // ferminet_apply_jac_lap_d2:
 //
 //   J[i][l] = delta_il (I + D_i M_i - SumA1_i N_i) + A0[i][l] K_i + A1[i][l] N_i
@@ -17,36 +17,29 @@
 // with per-row matrices M, K, N, R (a few hundred floats a row), the row
 // quantities D, SumA1 and the mean accumulator G_l = D_l - (1/n) sum_k sig0_k *
 // (A0[k][l] W3_0).  The Laplacian adds the squared-first-derivative sums of the
-// softplus chain rule, split as JfW1[i][l] = delta_il T_i + U[i][l] + V_l.
+// softplus chain rule, split as JfW1[i][l] = delta_il T_i + U[i][l] + V_l, with
+// U[i][l] = -(A0[i][l] Pq_i + A1[i][l] W3) / n, Pq_i = diag(sig0_i) W3_0 W1, and
+// V_l = G_l W2 / n.  The features do not move when every particle moves alike,
+// so sum_l JfW1[i][l] = 0 and T_i = -sum_l U[i][l].
 //
 // Bound on this card: operations.  What must move is x in and u, J (nd*nd
 // floats a walker) and lap out, 28.5 MB at n = 29 and batch 2048; the closure
 // needs about 1.0 Mflop a walker for J (2.7 Mflop with the Laplacian) and
 // some 55 transcendental calls per pair, which takes longer at the f32 rate
-// than those bytes at the memory rate.
+// than those bytes at the memory rate.  With the Laplacian the work per pair
+// doubles: U is a (dim x S) product per pair (A1[i][l] W3 alone is
+// dim * T * S multiply-adds), summed over the row's pairs as its squares and
+// its cross terms with V_l.
 //
-// Two kernels.  K5, u and J alone (cg_flow_d2_rows_kernel), gives a warp to
-// each particle row and keeps no pair table; its design is set out above it.
-// K6, with the Laplacian (cg_flow_d2_kernel<true, dim>):
-//
-// Design: one block per walker, everything but x, the weights and the outputs
-// stays in shared memory.  The pair derivative blocks A0[i][j] have 3 non-zero
-// entries per coordinate, all functions of (cos, sin)(2 pi r / L), |sin(pi r /
-// L)| and its gradient; a table of those 3 dim + 1 numbers per pair (24 KB at
-// n = 29, 91 KB at n = 57) is built once and every later phase rebuilds A0,
-// A1, A0 W on the spot from it, so no (n, n, dim, width) tensor ever exists.
-// Each phase gives one thread one output element and lets it loop over the
-// reduction index (j, k or l) in ascending order: no partial sums cross
-// threads, no atomics, and a walker's result does not depend on the batch it
-// is in.  Barriers order the two cross-row reductions (G needs every sig0,
-// the Laplacian's cross term needs every V).
+// One kernel, cg_flow_d2_rows_kernel, for both: K5 (u, J) and K6 (u, J, lap)
+// are its instantiations LAP = false and true.  A block of 8 warps per walker,
+// a warp per particle row, the pair state in registers and no pair table:
+// shared memory holds O(n S) floats.  The design is set out above the kernel.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #define CG_D2_MAXDIM 3
-#define CG_D2_THREADS 256
 
-__host__ __device__ inline int cg_d2_odd(int v) { return v | 1; }
 __host__ __device__ inline int cg_d2_up4(int v) { return (v + 3) & ~3; }
 
 // Packed weights of a depth-2 flow, in the order ops/cuda_flow_jac.py packs
@@ -63,497 +56,13 @@ __device__ inline float cg_d2_softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
 }
 
-// Offsets (in floats) of the arrays one block keeps in shared memory.
-struct cg_d2_layout {
-  int Pm, xs, tab, tp0m, sA, tp1m, sumA1, sig0, sp1, sig1, spfin, spmean;
-  int D, G, M, K, N, R, dg;
-  int hd, Ltp0m, Ltp1m, sq0p, Lsp1, Lsp1mean, V, VV, Lfin;  // Laplacian only
-  int total;
-};
-
 __host__ __device__ inline int cg_d2_take(int* o, int k) {
   const int r = *o;
   *o += k;
   return r;
 }
 
-__host__ __device__ inline cg_d2_layout cg_d2_make_layout(int n, int dim, int S, int T,
-                                                          bool lap) {
-  const int C0 = 2 * dim + 1, PF = cg_d2_odd(3 * dim + 1), SP = cg_d2_odd(S);
-  cg_d2_layout l;
-  int o = 0;
-  l.Pm = cg_d2_take(&o, cg_d2_up4(cg_d2_params(dim, S, T)));
-  l.xs = cg_d2_take(&o, n * dim);
-  l.tab = cg_d2_take(&o, n * n * PF);       // pair table, see cg_d2_kernel
-  l.tp0m = cg_d2_take(&o, n * C0);          // mean_j tp0[i][j]
-  l.sA = cg_d2_take(&o, n * dim * 3);       // sum_j of A0[i][j]'s 3 entries per d
-  l.tp1m = cg_d2_take(&o, n * T);           // mean_j tp1[i][j]
-  l.sumA1 = cg_d2_take(&o, n * dim * T);    // sum_j A1[i][j]
-  l.sig0 = cg_d2_take(&o, n * S);
-  l.sp1 = cg_d2_take(&o, n * S);
-  l.sig1 = cg_d2_take(&o, n * S);
-  l.spfin = cg_d2_take(&o, n * S);
-  l.spmean = cg_d2_take(&o, S);
-  l.D = cg_d2_take(&o, n * dim * S);
-  l.G = cg_d2_take(&o, n * dim * SP);       // odd row stride: read across l
-  l.M = cg_d2_take(&o, n * S * dim);
-  l.K = cg_d2_take(&o, n * C0 * dim);
-  l.N = cg_d2_take(&o, n * T * dim);
-  l.R = cg_d2_take(&o, n * S * dim);
-  l.dg = cg_d2_take(&o, n * dim * dim);     // D_i M_i - SumA1_i N_i
-  l.hd = l.Ltp0m = l.Ltp1m = l.sq0p = l.Lsp1 = l.Lsp1mean = l.V = l.VV = l.Lfin = 0;
-  if (lap) {
-    l.hd = cg_d2_take(&o, n * n);           // sum_a d^2 dij / d r_a^2
-    l.Ltp0m = cg_d2_take(&o, n * C0);
-    l.Ltp1m = cg_d2_take(&o, n * T);
-    l.sq0p = cg_d2_take(&o, n * S);         // sum_{j,d} (A0[i][j] W3_0)^2
-    l.Lsp1 = cg_d2_take(&o, n * S);
-    l.Lsp1mean = cg_d2_take(&o, S);
-    l.V = cg_d2_take(&o, n * dim * S);
-    l.VV = cg_d2_take(&o, S);
-    l.Lfin = cg_d2_take(&o, n * S);
-  }
-  l.total = o;
-  return l;
-}
-
-// A template over the Laplacian switch and dim: with dim a constant every
-// loop over coordinates unrolls and the small per-thread arrays stay in
-// registers.  The feature widths S and T are taken at run time.
-template <bool LAP, int DIM_>
-__global__ void cg_flow_d2_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ params,
-                                  float* __restrict__ u, float* __restrict__ J,
-                                  float* __restrict__ lap, int n, int S, int T,
-                                  float L) {
-  extern __shared__ __align__(16) float cg_smem[];
-  constexpr int dim = DIM_, DM = DIM_, C0 = 2 * DIM_ + 1, PF = (3 * DIM_ + 1) | 1;
-  const int nd = n * dim, SP = cg_d2_odd(S);
-  const cg_d2_layout o = cg_d2_make_layout(n, dim, S, T, LAP);
-  float* Pm = cg_smem + o.Pm;
-  float* xs = cg_smem + o.xs;
-  // Pair (i, j), r = x_i - x_j:  e[d] = cos(k2 r_d), e[dim + d] = sin(k2 r_d),
-  // e[2 dim] = dij = |sin(k1 r)| (these C0 numbers are tp0[i][j]), and
-  // e[2 dim + 1 + d] = d dij / d r_d.  The non-zero entries of
-  // A0[i][j][d][:] = d tp0[i][j] / d x_i[d] are then
-  //   [d] = -k2 e[dim + d],  [dim + d] = k2 e[d],  [2 dim] = e[2 dim + 1 + d],
-  // and A0[i][i] = 0.
-  float* tab = cg_smem + o.tab;
-  float* tp0m = cg_smem + o.tp0m;
-  float* sA = cg_smem + o.sA;
-  float* tp1m = cg_smem + o.tp1m;
-  float* sumA1 = cg_smem + o.sumA1;
-  float* sig0 = cg_smem + o.sig0;
-  float* sp1 = cg_smem + o.sp1;
-  float* sig1 = cg_smem + o.sig1;
-  float* spfin = cg_smem + o.spfin;
-  float* spmean = cg_smem + o.spmean;
-  float* Dm = cg_smem + o.D;
-  float* G = cg_smem + o.G;
-  float* Mm = cg_smem + o.M;
-  float* Km = cg_smem + o.K;
-  float* Nm = cg_smem + o.N;
-  float* Rm = cg_smem + o.R;
-  float* dg = cg_smem + o.dg;
-  float* hd = cg_smem + o.hd;
-  float* Ltp0m = cg_smem + o.Ltp0m;
-  float* Ltp1m = cg_smem + o.Ltp1m;
-  float* sq0p = cg_smem + o.sq0p;
-  float* Lsp1 = cg_smem + o.Lsp1;
-  float* Lsp1mean = cg_smem + o.Lsp1mean;
-  float* V = cg_smem + o.V;
-  float* VV = cg_smem + o.VV;
-  float* Lfin = cg_smem + o.Lfin;
-
-  const float* w30 = Pm + 2 * dim * S;         // rows of sp_w[0] that meet mean_j tp0
-  const float* b0 = Pm + (2 * dim + C0) * S;
-  const float* W1 = b0 + S;                    // sp_w[1]: rows for sp, mean sp, mean tp
-  const float* W2 = W1 + S * S;
-  const float* W3 = W2 + S * S;
-  const float* b1 = W3 + T * S;
-  const float* wt = b1 + S;                    // tp_w[0] (C0 x T)
-  const float* bt = wt + C0 * T;
-  const float* wf = bt + T;                    // final_w (S x dim)
-  const float* bf = wf + S * dim;
-
-  const size_t w = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const float k1 = 3.14159265358979323846f / L, k2 = 2.f * k1;
-  const float inv_n = 1.f / (float)n;
-  const int P = cg_d2_params(dim, S, T);
-
-  for (int idx = tid; idx < P; idx += nt) Pm[idx] = params[idx];
-  for (int idx = tid; idx < nd; idx += nt) xs[idx] = x[w * nd + idx];
-  __syncthreads();
-
-  // ---- pair table -------------------------------------------------------------
-  for (int p = tid; p < n * n; p += nt) {
-    const int i = p / n, j = p % n;
-    float* e = tab + p * PF;
-    float s1v[DM], c1v[DM];
-    float sumsq = 0.f;
-#pragma unroll
-    for (int d = 0; d < DM; ++d)
-      if (d < dim) {
-        const float r = xs[i * dim + d] - xs[j * dim + d];
-        float s2, c2;
-        sincosf(k2 * r, &s2, &c2);
-        sincosf(k1 * r, &s1v[d], &c1v[d]);
-        sumsq += s1v[d] * s1v[d];
-        e[d] = c2;
-        e[dim + d] = s2;
-      }
-    const float dij = (i == j) ? 0.f : sqrtf(sumsq);
-    const float safe = dij > 0.f ? dij : 1.f;
-    e[2 * dim] = dij;
-    float h = 0.f;
-#pragma unroll
-    for (int d = 0; d < DM; ++d)
-      if (d < dim) {
-        e[2 * dim + 1 + d] = (i == j) ? 0.f : k1 * s1v[d] * c1v[d] / safe;
-        if (LAP) {
-          // d = |s|: d''_a = (s'_a^2 + s_a s''_a) / d - (s_a s'_a)^2 / d^3
-          const float sp_ = k1 * c1v[d], spp = -(k1 * k1) * s1v[d];
-          const float ssp = s1v[d] * sp_;
-          h += (sp_ * sp_ + s1v[d] * spp) / safe - ssp * ssp / (safe * safe * safe);
-        }
-      }
-    if (LAP) hd[p] = (i == j) ? 0.f : h;
-  }
-  __syncthreads();
-
-  // ---- sums over j of the pair quantities of row i -----------------------------
-  for (int idx = tid; idx < n * C0; idx += nt) {
-    const int i = idx / C0, c = idx % C0;
-    float s = 0.f, sl = 0.f;
-    for (int j = 0; j < n; ++j) {
-      const float v = tab[(i * n + j) * PF + c];
-      s += v;
-      if (LAP && j != i)  // Laplacian of tp0: -2 k2^2 (cos, sin), 2 hd
-        sl += (c < 2 * dim) ? -2.f * k2 * k2 * v : 2.f * hd[i * n + j];
-    }
-    tp0m[idx] = s * inv_n;
-    if (LAP) Ltp0m[idx] = sl * inv_n;
-  }
-  for (int idx = tid; idx < nd * 3; idx += nt) {
-    const int i = idx / (dim * 3), d = (idx / 3) % dim, q = idx % 3;
-    float s = 0.f;
-    for (int j = 0; j < n; ++j)
-      if (j != i) {
-        const float* e = tab + (i * n + j) * PF;
-        s += (q == 0) ? -k2 * e[dim + d] : (q == 1) ? k2 * e[d] : e[2 * dim + 1 + d];
-      }
-    sA[idx] = s;
-  }
-  // pair-local tp layer: tp1 = softplus(tp0 wt + bt), A1 = sigmoid(.) * (A0 wt)
-  for (int idx = tid; idx < n * T; idx += nt) {
-    const int i = idx / T, c = idx % T;
-    float wc[C0];
-#pragma unroll
-    for (int c0 = 0; c0 < C0; ++c0) wc[c0] = (c0 < C0) ? wt[c0 * T + c] : 0.f;
-    const float bc = bt[c];
-    float sum_tp = 0.f, sumL = 0.f, sumA[DM];
-#pragma unroll
-    for (int d = 0; d < DM; ++d) sumA[d] = 0.f;
-    for (int j = 0; j < n; ++j) {
-      const float* e = tab + (i * n + j) * PF;
-      float pre = bc;
-#pragma unroll
-      for (int c0 = 0; c0 < C0; ++c0)
-        if (c0 < C0) pre += e[c0] * wc[c0];
-      sum_tp += cg_d2_softplus(pre);
-      if (j != i) {
-        const float sg = cg_d2_sigmoid(pre);
-        float sq = 0.f, ltw = 2.f * (LAP ? hd[i * n + j] : 0.f) * wc[2 * dim];
-#pragma unroll
-        for (int d = 0; d < DM; ++d)
-          if (d < dim) {
-            const float awt = -k2 * e[dim + d] * wc[d] + k2 * e[d] * wc[dim + d] +
-                              e[2 * dim + 1 + d] * wc[2 * dim];
-            sumA[d] += sg * awt;
-            sq += awt * awt;
-            ltw += -2.f * k2 * k2 * (e[d] * wc[d] + e[dim + d] * wc[dim + d]);
-          }
-        if (LAP) sumL += sg * ltw + sg * (1.f - sg) * 2.f * sq;
-      }
-    }
-    tp1m[idx] = sum_tp * inv_n;
-#pragma unroll
-    for (int d = 0; d < DM; ++d)
-      if (d < dim) sumA1[(i * dim + d) * T + c] = sumA[d];
-    if (LAP) Ltp1m[idx] = sumL * inv_n;
-  }
-  if (LAP)
-    for (int idx = tid; idx < n * S; idx += nt) {
-      const int i = idx / S, s = idx % S;
-      float acc = 0.f;
-      for (int j = 0; j < n; ++j)
-        if (j != i) {
-          const float* e = tab + (i * n + j) * PF;
-#pragma unroll
-          for (int d = 0; d < DM; ++d)
-            if (d < dim) {
-              const float aw = -k2 * e[dim + d] * w30[d * S + s] +
-                               k2 * e[d] * w30[(dim + d) * S + s] +
-                               e[2 * dim + 1 + d] * w30[2 * dim * S + s];
-              acc += aw * aw;
-            }
-        }
-      sq0p[idx] = acc;
-    }
-  __syncthreads();
-
-  // ---- layer 0 of the sp stream -------------------------------------------------
-  for (int idx = tid; idx < n * S; idx += nt) {
-    const int i = idx / S, s = idx % S;
-    float pre = b0[s], lt = 0.f;
-    for (int c = 0; c < C0; ++c) {
-      pre += tp0m[i * C0 + c] * w30[c * S + s];
-      if (LAP) lt += Ltp0m[i * C0 + c] * w30[c * S + s];
-    }
-    const float sg = cg_d2_sigmoid(pre);
-    sig0[idx] = sg;
-    sp1[idx] = cg_d2_softplus(pre);
-    float sqd = 0.f;
-    for (int d = 0; d < dim; ++d) {
-      const float* a = sA + (i * dim + d) * 3;
-      const float saw = a[0] * w30[d * S + s] + a[1] * w30[(dim + d) * S + s] +
-                        a[2] * w30[2 * dim * S + s];
-      Dm[(i * dim + d) * S + s] = sg * saw * inv_n;
-      sqd += saw * saw;
-    }
-    if (LAP) Lsp1[idx] = sg * lt + sg * (1.f - sg) * (sqd + sq0p[idx]) * inv_n * inv_n;
-  }
-  __syncthreads();
-  for (int s = tid; s < S; s += nt) {
-    float m = 0.f, ml = 0.f;
-    for (int i = 0; i < n; ++i) {
-      m += sp1[i * S + s];
-      if (LAP) ml += Lsp1[i * S + s];
-    }
-    spmean[s] = m * inv_n;
-    if (LAP) Lsp1mean[s] = ml * inv_n;
-  }
-  __syncthreads();
-
-  // ---- final sp layer -------------------------------------------------------------
-  for (int idx = tid; idx < n * S; idx += nt) {
-    const int i = idx / S, s2 = idx % S;
-    float pre = b1[s2];
-    for (int s = 0; s < S; ++s)
-      pre += sp1[i * S + s] * W1[s * S + s2] + spmean[s] * W2[s * S + s2];
-    for (int c = 0; c < T; ++c) pre += tp1m[i * T + c] * W3[c * S + s2];
-    sig1[idx] = cg_d2_sigmoid(pre);
-    spfin[idx] = sp1[idx] + cg_d2_softplus(pre);
-  }
-  __syncthreads();
-  for (int idx = tid; idx < nd; idx += nt) {
-    const int i = idx / dim, b = idx % dim;
-    float acc = bf[b];
-    for (int s = 0; s < S; ++s) acc += spfin[i * S + s] * wf[s * dim + b];
-    u[w * nd + idx] = xs[idx] + acc;
-  }
-  // per-row matrices: M = (I + W1 diag(sig1)) wf, N = -W3 diag(sig1) wf / n,
-  // R = W2 diag(sig1) wf / n
-  for (int idx = tid; idx < n * S * dim; idx += nt) {
-    const int i = idx / (S * dim), s = (idx / dim) % S, b = idx % dim;
-    float m = 0.f, r = 0.f;
-    for (int t = 0; t < S; ++t) {
-      const float sw = sig1[i * S + t] * wf[t * dim + b];
-      m += W1[s * S + t] * sw;
-      r += W2[s * S + t] * sw;
-    }
-    Mm[idx] = wf[s * dim + b] + m;
-    Rm[idx] = r * inv_n;
-  }
-  for (int idx = tid; idx < n * T * dim; idx += nt) {
-    const int i = idx / (T * dim), c = (idx / dim) % T, b = idx % dim;
-    float acc = 0.f;
-    for (int t = 0; t < S; ++t) acc += W3[c * S + t] * sig1[i * S + t] * wf[t * dim + b];
-    Nm[idx] = -acc * inv_n;
-  }
-  __syncthreads();
-  // K = -W3_0 diag(sig0) M / n;  dg = D M - SumA1 N
-  for (int idx = tid; idx < n * C0 * dim; idx += nt) {
-    const int i = idx / (C0 * dim), c = (idx / dim) % C0, b = idx % dim;
-    float acc = 0.f;
-    for (int s = 0; s < S; ++s) acc += w30[c * S + s] * sig0[i * S + s] * Mm[(i * S + s) * dim + b];
-    Km[idx] = -acc * inv_n;
-  }
-  for (int idx = tid; idx < nd * dim; idx += nt) {
-    const int i = idx / (dim * dim), a = (idx / dim) % dim, b = idx % dim;
-    float acc = 0.f;
-    for (int s = 0; s < S; ++s) acc += Dm[(i * dim + a) * S + s] * Mm[(i * S + s) * dim + b];
-    for (int c = 0; c < T; ++c) acc -= sumA1[(i * dim + a) * T + c] * Nm[(i * T + c) * dim + b];
-    dg[idx] = acc;
-  }
-  // ---- mean accumulator G_l = D_l - (1/n) sum_k sig0_k * (A0[k][l] W3_0) ------------
-  for (int idx = tid; idx < n * S; idx += nt) {
-    const int l = idx / S, s = idx % S;
-    float acc[DM];
-#pragma unroll
-    for (int d = 0; d < DM; ++d) acc[d] = 0.f;
-    for (int k = 0; k < n; ++k)
-      if (k != l) {
-        const float* e = tab + (k * n + l) * PF;
-        const float sg = sig0[k * S + s];
-#pragma unroll
-        for (int d = 0; d < DM; ++d)
-          if (d < dim)
-            acc[d] += sg * (-k2 * e[dim + d] * w30[d * S + s] +
-                            k2 * e[d] * w30[(dim + d) * S + s] +
-                            e[2 * dim + 1 + d] * w30[2 * dim * S + s]);
-      }
-#pragma unroll
-    for (int d = 0; d < DM; ++d)
-      if (d < dim) G[(l * dim + d) * SP + s] = Dm[(l * dim + d) * S + s] - acc[d] * inv_n;
-  }
-  __syncthreads();
-  if (LAP) {
-    for (int idx = tid; idx < nd * S; idx += nt) {
-      const int ld = idx / S, s2 = idx % S;
-      float acc = 0.f;
-      for (int s = 0; s < S; ++s) acc += G[ld * SP + s] * W2[s * S + s2];
-      V[idx] = acc * inv_n;
-    }
-    __syncthreads();
-    for (int s2 = tid; s2 < S; s2 += nt) {
-      float acc = 0.f;
-      for (int ld = 0; ld < nd; ++ld) acc += V[ld * S + s2] * V[ld * S + s2];
-      VV[s2] = acc;
-    }
-    __syncthreads();
-  }
-
-  // ---- Jacobian blocks: one (i, l) pair per thread ----------------------------------
-  float* Jw = J + w * nd * nd;
-  for (int p = tid; p < n * n; p += nt) {
-    const int i = p / n, l = p % n;
-    float acc[DM][DM];
-#pragma unroll
-    for (int a = 0; a < DM; ++a)
-#pragma unroll
-      for (int b = 0; b < DM; ++b)
-        acc[a][b] = (i == l && a < dim && b < dim)
-                        ? dg[(i * dim + a) * dim + b] + (a == b ? 1.f : 0.f) : 0.f;
-    for (int s = 0; s < S; ++s) {  // G_l R_i
-#pragma unroll
-      for (int a = 0; a < DM; ++a)
-        if (a < dim) {
-          const float g = G[(l * dim + a) * SP + s];
-#pragma unroll
-          for (int b = 0; b < DM; ++b)
-            if (b < dim) acc[a][b] += g * Rm[(i * S + s) * dim + b];
-        }
-    }
-    if (i != l) {
-      const float* e = tab + p * PF;
-      float al[DM], be[DM], ga[DM];
-#pragma unroll
-      for (int a = 0; a < DM; ++a)
-        if (a < dim) {
-          al[a] = -k2 * e[dim + a];
-          be[a] = k2 * e[a];
-          ga[a] = e[2 * dim + 1 + a];
-#pragma unroll
-          for (int b = 0; b < DM; ++b)  // A0[i][l] K_i
-            if (b < dim)
-              acc[a][b] += al[a] * Km[(i * C0 + a) * dim + b] +
-                           be[a] * Km[(i * C0 + dim + a) * dim + b] +
-                           ga[a] * Km[(i * C0 + 2 * dim) * dim + b];
-        }
-      for (int c = 0; c < T; ++c) {  // A1[i][l] N_i
-        float pre = bt[c];
-        for (int c0 = 0; c0 < C0; ++c0) pre += e[c0] * wt[c0 * T + c];
-        const float sg = cg_d2_sigmoid(pre);
-#pragma unroll
-        for (int a = 0; a < DM; ++a)
-          if (a < dim) {
-            const float a1 = sg * (al[a] * wt[a * T + c] + be[a] * wt[(dim + a) * T + c] +
-                                   ga[a] * wt[2 * dim * T + c]);
-#pragma unroll
-            for (int b = 0; b < DM; ++b)
-              if (b < dim) acc[a][b] += a1 * Nm[(i * T + c) * dim + b];
-          }
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < DM; ++a)
-#pragma unroll
-      for (int b = 0; b < DM; ++b)
-        if (a < dim && b < dim) Jw[(i * dim + b) * nd + l * dim + a] = acc[a][b];
-  }
-
-  // ---- Laplacian ------------------------------------------------------------------
-  if (LAP) {
-    // sum over (l, d) of (delta_il T_i + U[i][l] + V_l)^2 for feature s2 of row i
-    for (int idx = tid; idx < n * S; idx += nt) {
-      const int i = idx / S, s2 = idx % S;
-      float Pq[C0];  // (sig0_i * W3_0[c0]) W1, so that (sig0_i * A0 W3_0) W1 = A0 Pq
-#pragma unroll
-      for (int c0 = 0; c0 < C0; ++c0) {
-        float acc = 0.f;
-        if (c0 < C0)
-          for (int s = 0; s < S; ++s) acc += sig0[i * S + s] * w30[c0 * S + s] * W1[s * S + s2];
-        Pq[c0] = acc;
-      }
-      float sq = VV[s2];
-#pragma unroll
-      for (int d = 0; d < DM; ++d)
-        if (d < dim) {
-          float t = 0.f, t3 = 0.f;
-          for (int s = 0; s < S; ++s) t += Dm[(i * dim + d) * S + s] * W1[s * S + s2];
-          for (int c = 0; c < T; ++c) t3 += sumA1[(i * dim + d) * T + c] * W3[c * S + s2];
-          t += t3 * inv_n;
-          sq += t * t + 2.f * t * V[(i * dim + d) * S + s2];
-        }
-      for (int l = 0; l < n; ++l)
-        if (l != i) {
-          const float* e = tab + (i * n + l) * PF;
-          float al[DM], be[DM], ga[DM], uu[DM];
-#pragma unroll
-          for (int d = 0; d < DM; ++d)
-            if (d < dim) {
-              al[d] = -k2 * e[dim + d];
-              be[d] = k2 * e[d];
-              ga[d] = e[2 * dim + 1 + d];
-              uu[d] = al[d] * Pq[d] + be[d] * Pq[dim + d] + ga[d] * Pq[2 * dim];
-            }
-          for (int c = 0; c < T; ++c) {
-            float pre = bt[c];
-            for (int c0 = 0; c0 < C0; ++c0) pre += e[c0] * wt[c0 * T + c];
-            const float sgw = cg_d2_sigmoid(pre) * W3[c * S + s2];
-#pragma unroll
-            for (int d = 0; d < DM; ++d)
-              if (d < dim)
-                uu[d] += sgw * (al[d] * wt[d * T + c] + be[d] * wt[(dim + d) * T + c] +
-                                ga[d] * wt[2 * dim * T + c]);
-          }
-#pragma unroll
-          for (int d = 0; d < DM; ++d)
-            if (d < dim) {
-              const float U = -uu[d] * inv_n;
-              sq += U * (U + 2.f * V[(l * dim + d) * S + s2]);
-            }
-        }
-      float lf = 0.f;
-      for (int s = 0; s < S; ++s)
-        lf += Lsp1[i * S + s] * W1[s * S + s2] + Lsp1mean[s] * W2[s * S + s2];
-      for (int c = 0; c < T; ++c) lf += Ltp1m[i * T + c] * W3[c * S + s2];
-      const float sg = sig1[idx];
-      Lfin[idx] = Lsp1[idx] + sg * lf + sg * (1.f - sg) * sq;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < nd; idx += nt) {
-      const int i = idx / dim, b = idx % dim;
-      float acc = 0.f;
-      for (int s = 0; s < S; ++s) acc += Lfin[i * S + s] * wf[s * dim + b];
-      lap[w * nd + idx] = acc;
-    }
-  }
-}
-
-// ---- K5: u and J alone, a warp per particle row ------------------------------
+// ---- The kernel: a warp per particle row ----------------------------------
 //
 // One block of CG_D2R_WARPS warps per walker; warp w takes the rows w, w + 8,
 // ...  Lane L of a row's warp owns the pairs (i, L) and (i, L + 32) (n <= 64)
@@ -561,38 +70,51 @@ __global__ void cg_flow_d2_kernel(const float* __restrict__ x,
 // angle t = pi r / L per coordinate:
 //   sin(2t) = 2 sin t cos t,  cos(2t) = 1 - 2 sin^2 t,  d = |(sin t_a)_a|,
 //   d d / d r_a = k1 sin t_a cos t_a / d,
+//   sum_a d^2 d / d r_a^2 = k1^2 (sum_a cos 2t_a / d - sum_a (sin t_a cos t_a)^2 / d^3),
 // all of period L in r, so r is folded into [-L/2, L/2] first.  No pair table
-// exists: shared memory holds O(n S) floats (the rows' sig0, sp1, D, G, the
-// weights and a scratch line per warp).  Three phases, two block barriers:
+// exists: shared memory holds O(n S) floats (the rows' sig0, sp1, D, G, with
+// the Laplacian Lsp1 and V, the weights and a scratch line per warp).  Three
+// phases, two block barriers:
 //   1. a warp per row: sums over j of the features -> sig0, sp1, D of row i;
+//      K6 also sums the pair Laplacians of tp0 and, per coordinate, the 3 x 3
+//      outer products of A0[i][j]'s entries, from which
+//      sum_j |A0[i][j] W3_0|^2 is a quadratic form in W3_0 -> Lsp1 of row i;
 //   2. a warp per column l: G_l = D_l - (1/n) sum_k sig0_k (A0[k][l] W3_0),
 //      A0[k][l] from the pair (l, k) the warp holds (cos and |sin| are even in
 //      r, sin and the gradient of |sin| odd); warp 0 also forms mean_i sp1 and
-//      the final sp layer's row-independent part b1 + mean_i(sp1) W2;
+//      the final sp layer's row-independent part b1 + mean_i(sp1) W2; K6 also
+//      V_l = G_l W2 / n, and mean_i(Lsp1) W2 beside mean_i(sp1) W2;
 //   3. a warp per row: the tp layer once per pair (one exp, one division, one
 //      log: sigmoid and softplus), its row sum, sig1, u, the row's matrices
 //      M, R, N, K, and the row's J blocks (i, l), lane l writing block (i, l)
 //      of the contiguous rows (i, b) of J.  The diagonal block takes minus
-//      the lanes' sum of A1[i][l] N_i for SumA1_i N_i.
+//      the lanes' sum of A1[i][l] N_i for SumA1_i N_i.  K6 sums the pairs'
+//      Laplacians of tp1 beside their softplus, and after the J blocks forms
+//      each pair's U[i][l] from the tp sigmoids still in registers, summing
+//      (U[i][l] + V_l)^2 and U[i][l] over the row (U[i][i] = 0 brings V_i^2);
+//      then sq1_i = sum_l |U + V_l|^2 + T_i (T_i + 2 V_i), and lap of row i.
 // Sums over the lanes are fixed-order shuffle trees (cg_d2r_tree), sums over
 // i ascend in one thread: a walker's result does not depend on its batch.
 // tests/test_torch_flow_d2_rows.py holds a numpy model of this order.  Rows
 // of four features are read 16 bytes at a time (the zero-padded sig0, G, R,
-// W3_0, tp_w with tp_b, and Q = tp_w * N, which turns A1[i][l] N_i into 16
-// rows of multiply-adds).  The production widths 16/16 have instantiations
-// of their own, so that every loop over a width has a compile-time count;
-// a lane owning one pair (n <= 32) takes 80 registers and three blocks an SM,
-// two pairs 128 registers and two blocks.
+// V, W3_0, W3, Pq, tp_w with tp_b, and Q = tp_w * N, which turns A1[i][l] N_i
+// into 16 rows of multiply-adds).  The production widths 16/16 have
+// instantiations of their own, so that every loop over a width has a
+// compile-time count; without the Laplacian a lane owning one pair (n <= 32)
+// takes 80 registers and three blocks an SM, two pairs 128 registers and two
+// blocks; with it two blocks an SM.
 #define CG_D2R_WARPS 8
 #define CG_D2R_MAXN 64
 #define CG_D2R_MAXW 32
 
 __host__ __device__ constexpr int cg_d2r_pow2(int v) { return v <= 1 ? 1 : 2 * cg_d2r_pow2((v + 1) / 2); }
 
-// Offsets (in floats) of K5's shared arrays.
+// Offsets (in floats) of the kernel's shared arrays; those of the Laplacian
+// are 0 without it.
 struct cg_d2r_layout {
   int Pm, W1T, W2T, W3T, W30p, WTB, xs, sig0, sp1, D, G, B1W, scr;
-  int S4, SS, GS, QW, scr_stride, total;
+  int Lsp1, V, LB, W3p;
+  int S4, SS, GS, QW, RS, scr_stride, total;
 };
 
 // A row stride (in floats) of whole 16-byte groups, an odd number of them:
@@ -602,16 +124,19 @@ __host__ __device__ inline int cg_d2r_stride4(int v) {
   return (v / 4) % 2 ? v : v + 4;
 }
 
-__host__ __device__ inline cg_d2r_layout cg_d2r_make_layout(int n, int dim, int S, int T) {
+__host__ __device__ inline cg_d2r_layout cg_d2r_make_layout(int n, int dim, int S, int T,
+                                                           bool lap) {
   const int C0 = 2 * dim + 1;
   cg_d2r_layout l;
   int o = 0;
   // Every array starts on a 16-byte boundary; rows read 4 features at a time
-  // (sig0, G, W3_0, R, Q) are padded with zeros to S4 = S rounded up to 4.
+  // (sig0, G, V, W3_0, W3, R, Q, Pq) are padded with zeros to S4 = S rounded
+  // up to 4.
   l.S4 = cg_d2_up4(S);
   l.SS = cg_d2r_stride4(S);        // lanes read rows k of sig0 and G
   l.GS = cg_d2r_stride4(dim * l.S4);
   l.QW = cg_d2_up4(C0 * dim);
+  l.RS = lap ? 64 : 32;            // a warp's row sums
   l.Pm = cg_d2_take(&o, cg_d2_up4(cg_d2_params(dim, S, T)));
   l.W1T = cg_d2_take(&o, cg_d2_up4(S * S));  // W1^T, W2^T, W3^T: lanes run along their rows
   l.W2T = cg_d2_take(&o, cg_d2_up4(S * S));
@@ -624,10 +149,19 @@ __host__ __device__ inline cg_d2r_layout cg_d2r_make_layout(int n, int dim, int 
   l.D = cg_d2_take(&o, cg_d2_up4(n * dim * S));
   l.G = cg_d2_take(&o, n * l.GS);
   l.B1W = cg_d2_take(&o, cg_d2_up4(S));  // sp_b[1] + mean_i(sp1) W2
-  // per warp: row sums (32), sig1 (S), M (S x dim), R (S4 x dim), N (T x dim),
-  // K (C0 x dim), D_i M_i (dim x dim), Q[c][q dim + b] = tp_w[q][c] N[c][b]
-  l.scr_stride = 32 + cg_d2_up4(S * dim) + cg_d2_up4(S * dim) + l.S4 * dim + cg_d2_up4(T * dim) +
-                 cg_d2_up4(C0 * dim) + cg_d2_up4(dim * dim) + T * l.QW;
+  l.Lsp1 = l.V = l.LB = l.W3p = 0;
+  if (lap) {
+    l.Lsp1 = cg_d2_take(&o, cg_d2_up4(n * S));
+    l.V = cg_d2_take(&o, n * l.GS);       // V_l = G_l W2 / n, laid out as G
+    l.LB = cg_d2_take(&o, cg_d2_up4(S));  // mean_i(Lsp1) W2
+    l.W3p = cg_d2_take(&o, T * l.S4);     // W3 (T x S) with zero pads
+  }
+  // per warp: row sums (RS), sig1 (S), M (S x dim), R (S4 x dim), N (T x dim),
+  // K (C0 x dim), D_i M_i (dim x dim), Q[c][q dim + b] = tp_w[q][c] N[c][b],
+  // with the Laplacian Pq_i (C0 x S4)
+  l.scr_stride = l.RS + cg_d2_up4(S * dim) + cg_d2_up4(S * dim) + l.S4 * dim +
+                 cg_d2_up4(T * dim) + cg_d2_up4(C0 * dim) + cg_d2_up4(dim * dim) + T * l.QW +
+                 (lap ? C0 * l.S4 : 0);
   l.scr = cg_d2_take(&o, CG_D2R_WARPS * l.scr_stride);
   l.total = o;
   return l;
@@ -656,11 +190,14 @@ __device__ inline void cg_d2r_sincos(float t, float* s, float* c) {
 
 // The features of pair (i, j), r = x_i - x_j: e = (cos k2 r, sin k2 r, d) and
 // A0[i][j]'s entries al = -k2 sin k2 r, be = k2 cos k2 r, ga = d d / d r;
-// A0[i][i] = 0 (r_ii is identically 0).
-template <int DIM>
+// A0[i][i] = 0 (r_ii is identically 0).  HD: also hd = sum_a d^2 d / d r_a^2,
+// 0 at i == j, with 1 / d taken as 1 where d = 0 (coincident particles), as
+// the plain versions do.
+template <int DIM, bool HD = false>
 __device__ inline void cg_d2r_pair(const float* xs, int i, int j, float L, float invL,
                                    float k1, float k2, float (&e)[2 * DIM + 1],
-                                   float (&al)[DIM], float (&be)[DIM], float (&ga)[DIM]) {
+                                   float (&al)[DIM], float (&be)[DIM], float (&ga)[DIM],
+                                   float* hd = nullptr) {
   float s1[DIM], c1[DIM], d2 = 0.f;
 #pragma unroll
   for (int d = 0; d < DIM; ++d) {
@@ -671,6 +208,7 @@ __device__ inline void cg_d2r_pair(const float* xs, int i, int j, float L, float
   }
   const float inv = d2 > 0.f ? rsqrtf(d2) : 0.f;
   const float self = (i == j) ? 0.f : 1.f;
+  float hc = 0.f, hs = 0.f;
 #pragma unroll
   for (int d = 0; d < DIM; ++d) {
     const float c2 = fmaf(-2.f * s1[d], s1[d], 1.f), s2 = 2.f * s1[d] * c1[d];
@@ -679,8 +217,17 @@ __device__ inline void cg_d2r_pair(const float* xs, int i, int j, float L, float
     al[d] = -k2 * s2;  // s2 = 0 at i == j
     be[d] = self * k2 * c2;
     ga[d] = k1 * s1[d] * c1[d] * inv;
+    if (HD) {
+      const float sc = s1[d] * c1[d];
+      hc += c2;
+      hs = fmaf(sc, sc, hs);
+    }
   }
   e[2 * DIM] = d2 * inv;
+  if (HD) {
+    const float is = d2 > 0.f ? inv : 1.f;
+    *hd = self * k1 * k1 * is * (hc - hs * is * is);
+  }
 }
 
 // The warp's sum of V values a lane (V a power of two <= 32): halving rounds
@@ -717,21 +264,31 @@ __device__ __forceinline__ float cg_d2r_tree(float (&v)[V], int lane) {
   return cg_d2r_butterfly<16 / V>(v[0]);
 }
 
+// cg_d2r_tree with the sum of value v written to out[v] (out: a warp's row
+// sums; the caller orders the reads with __syncwarp).
+template <int V>
+__device__ __forceinline__ void cg_d2r_tree_to(float (&v)[V], int lane, float* out) {
+  const float sum = cg_d2r_tree<V>(v, lane);
+  if ((lane & (32 / V - 1)) == 0) out[lane / (32 / V)] = sum;
+}
+
 __device__ __forceinline__ float cg_d2r_allsum(float s) { return cg_d2r_butterfly<16>(s); }
 
 // SM, TM: compile-time caps of the widths S, T (16 or 32); EX: the widths
 // are the caps (then every loop over a width has a compile-time count); NP:
-// the pairs a lane owns in a row (1 for n <= 32, else 2).
-template <int DIM, int SM, int TM, int NP, bool EX>
-__global__ void __launch_bounds__(32 * CG_D2R_WARPS, NP == 1 ? 3 : 2)
+// the pairs a lane owns in a row (1 for n <= 32, else 2); LAP: K6, with the
+// Laplacian.
+template <int DIM, int SM, int TM, int NP, bool EX, bool LAP>
+__global__ void __launch_bounds__(32 * CG_D2R_WARPS, (NP == 1 && !LAP) ? 3 : 2)
 cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ params,
-                       float* __restrict__ u, float* __restrict__ J, int n, int S_, int T_,
-                       float L) {
+                       float* __restrict__ u, float* __restrict__ J, float* __restrict__ lap,
+                       int n, int S_, int T_, float L) {
   const int S = EX ? SM : S_, T = EX ? TM : T_;
   extern __shared__ __align__(16) float cg_smem[];
   constexpr int dim = DIM, C0 = 2 * DIM + 1, V1 = cg_d2r_pow2(C0 + 3 * DIM);
+  constexpr int V1L = cg_d2r_pow2(C0 + 6 * DIM);  // K6's second row sum of phase 1
   const int nd = n * dim, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const cg_d2r_layout o = cg_d2r_make_layout(n, dim, S, T);
+  const cg_d2r_layout o = cg_d2r_make_layout(n, dim, S, T, LAP);
   const int SS = o.SS, GS = o.GS, S4 = o.S4, QW = o.QW;
   float* Pm = cg_smem + o.Pm;
   float* W1T = cg_smem + o.W1T;
@@ -745,14 +302,20 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
   float* sp1 = cg_smem + o.sp1;
   float* Dm = cg_smem + o.D;
   float* G = cg_smem + o.G;
+  float* Lsp1 = cg_smem + o.Lsp1;  // the Laplacian's arrays (LAP only)
+  float* Vm = cg_smem + o.V;
+  float* LB = cg_smem + o.LB;
+  float* W3p = cg_smem + o.W3p;
   float* rs = cg_smem + o.scr + warp * o.scr_stride;  // this warp's scratch line
-  float* sig1 = rs + 32;
+  float* rsL = rs + 32;                               // K6's second row sums
+  float* sig1 = rs + o.RS;
   float* Mm = sig1 + cg_d2_up4(S * dim);  // sig1 holds sig1[t] wf[t][b]
   float* Rm = Mm + cg_d2_up4(S * dim);
   float* Nm = Rm + S4 * dim;
   float* Km = Nm + cg_d2_up4(T * dim);
   float* dg = Km + cg_d2_up4(C0 * dim);
   float* Qm = dg + cg_d2_up4(dim * dim);
+  float* Pq = Qm + T * QW;  // LAP: Pq_i = diag(sig0_i) W3_0 W1 (C0 x S4)
 
   const float* w30 = Pm + 2 * dim * S;  // rows of sp_w[0] that meet mean_j tp0
   const float* b0 = Pm + (2 * dim + C0) * S;
@@ -789,6 +352,8 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
   // the zero pads of the 4-wide rows
   for (int idx = tid; idx < n * SS; idx += nt) sig0[idx] = 0.f;
   for (int idx = tid; idx < n * GS; idx += nt) G[idx] = 0.f;
+  if (LAP)
+    for (int idx = tid; idx < n * GS; idx += nt) Vm[idx] = 0.f;
   for (int idx = tid; idx < CG_D2R_WARPS * o.scr_stride; idx += nt) cg_smem[o.scr + idx] = 0.f;
   __syncthreads();
   for (int idx = tid; idx < C0 * S4; idx += nt)
@@ -803,18 +368,23 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
     W2T[b * S + a] = W2[idx];
   }
   for (int idx = tid; idx < T * S; idx += nt) W3T[(idx % S) * T + idx / S] = W3[idx];
+  if (LAP)
+    for (int idx = tid; idx < T * S4; idx += nt)
+      W3p[idx] = idx % S4 < S ? W3[(idx / S4) * S + idx % S4] : 0.f;
 
   // ---- phase 1: a warp per row i, the sums over j of the pair features ------------
   for (int i = warp; i < n; i += CG_D2R_WARPS) {
-    float part[V1];
+    float part[V1], partL[LAP ? V1L : 1];
 #pragma unroll
     for (int v = 0; v < V1; ++v) part[v] = 0.f;
+#pragma unroll
+    for (int v = 0; v < (LAP ? V1L : 1); ++v) partL[v] = 0.f;
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       const int j = lane + 32 * p;
       if (j < n) {
-        float e[C0], al[DIM], be[DIM], ga[DIM];
-        cg_d2r_pair<DIM>(xs, i, j, L, invL, k1, k2, e, al, be, ga);
+        float e[C0], al[DIM], be[DIM], ga[DIM], hd;
+        cg_d2r_pair<DIM, LAP>(xs, i, j, L, invL, k1, k2, e, al, be, ga, &hd);
 #pragma unroll
         for (int c = 0; c < C0; ++c) part[c] += e[c];
 #pragma unroll
@@ -823,10 +393,27 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
           part[C0 + DIM + d] += be[d];
           part[C0 + 2 * DIM + d] += ga[d];
         }
+        if constexpr (LAP) {
+          // the pair's Laplacian of tp0 (zero at j == i), and per coordinate
+          // the outer products of (al, be, ga)
+          const float m2k = j == i ? 0.f : -2.f * k2 * k2;
+#pragma unroll
+          for (int c = 0; c < 2 * DIM; ++c) partL[c] += m2k * e[c];
+          partL[2 * DIM] += 2.f * hd;
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) {
+            partL[C0 + 6 * d] += al[d] * al[d];
+            partL[C0 + 6 * d + 1] += be[d] * be[d];
+            partL[C0 + 6 * d + 2] += ga[d] * ga[d];
+            partL[C0 + 6 * d + 3] += al[d] * be[d];
+            partL[C0 + 6 * d + 4] += al[d] * ga[d];
+            partL[C0 + 6 * d + 5] += be[d] * ga[d];
+          }
+        }
       }
     }
-    const float sum = cg_d2r_tree<V1>(part, lane);
-    if ((lane & (32 / V1 - 1)) == 0) rs[lane / (32 / V1)] = sum;
+    cg_d2r_tree_to<V1>(part, lane, rs);
+    if constexpr (LAP) cg_d2r_tree_to<V1L>(partL, lane, rsL);
     __syncwarp();
     for (int s = lane; s < S; s += 32) {
       float pre = b0[s];
@@ -834,12 +421,21 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
       const float sg = cg_d2_sigmoid(pre);
       sig0[i * SS + s] = sg;
       sp1[i * S + s] = cg_d2_softplus(pre);
+      float lt = 0.f, sq = 0.f;
+      if (LAP)
+        for (int c = 0; c < C0; ++c) lt += rsL[c] * inv_n * w30[c * S + s];
 #pragma unroll
       for (int d = 0; d < DIM; ++d) {
-        const float saw = rs[C0 + d] * w30[d * S + s] + rs[C0 + DIM + d] * w30[(dim + d) * S + s] +
-                          rs[C0 + 2 * DIM + d] * w30[2 * dim * S + s];
+        const float wa = w30[d * S + s], wb = w30[(dim + d) * S + s], wg = w30[2 * dim * S + s];
+        const float saw = rs[C0 + d] * wa + rs[C0 + DIM + d] * wb + rs[C0 + 2 * DIM + d] * wg;
         Dm[(i * dim + d) * S + s] = sg * saw * inv_n;
+        if (LAP) {  // |sum_j A0 W3_0|^2 + sum_j |A0 W3_0|^2, the latter from the outer products
+          const float* m = rsL + C0 + 6 * d;
+          sq += saw * saw + m[0] * wa * wa + m[1] * wb * wb + m[2] * wg * wg +
+                2.f * (m[3] * wa * wb + m[4] * wa * wg + m[5] * wb * wg);
+        }
       }
+      if (LAP) Lsp1[i * S + s] = sg * lt + sg * (1.f - sg) * sq * inv_n * inv_n;
     }
     __syncwarp();
   }
@@ -848,16 +444,25 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
   // ---- phase 2: a warp per column l, G_l from the mirrored pairs (l, k) --------------
   if (warp == 0) {  // mean_i sp1, and with it the row-independent part of pre1
     float* spmean = rs;
+    float* Lmean = rsL;
     for (int s = lane; s < S; s += 32) {
-      float m = 0.f;
-      for (int i = 0; i < n; ++i) m += sp1[i * S + s];
+      float m = 0.f, ml = 0.f;
+      for (int i = 0; i < n; ++i) {
+        m += sp1[i * S + s];
+        if (LAP) ml += Lsp1[i * S + s];
+      }
       spmean[s] = m * inv_n;
+      if (LAP) Lmean[s] = ml * inv_n;
     }
     __syncwarp();
     for (int s2 = lane; s2 < S; s2 += 32) {
-      float b = b1[s2];
-      for (int s = 0; s < S; ++s) b += spmean[s] * W2[s * S + s2];
+      float b = b1[s2], bl = 0.f;
+      for (int s = 0; s < S; ++s) {
+        b += spmean[s] * W2[s * S + s2];
+        if (LAP) bl += Lmean[s] * W2[s * S + s2];
+      }
       B1W[s2] = b;
+      if (LAP) LB[s2] = bl;
     }
     __syncwarp();
   }
@@ -897,23 +502,40 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
       if ((lane & (32 / SM - 1)) == 0 && s < S)
         G[l * GS + d * S4 + s] = Dm[(l * dim + d) * S + s] - g * inv_n;
     }
+    if constexpr (LAP) {  // V_l = G_l W2 / n
+      __syncwarp();
+      for (int idx = lane; idx < DIM * S; idx += 32) {
+        const int d = idx / S, s2 = idx % S;
+        float v = 0.f;
+        for (int s = 0; s < S; ++s) v += G[l * GS + d * S4 + s] * W2[s * S + s2];
+        Vm[l * GS + d * S4 + s2] = v * inv_n;
+      }
+    }
   }
   __syncthreads();
 
   // ---- phase 3: a warp per row i, the tp layer and the J blocks of the row ------------
   float* Jw = J + w * nd * nd;
   for (int i = warp; i < n; i += CG_D2R_WARPS) {
-    float sigt[NP][TM], al[NP][DIM], be[NP][DIM], ga[NP][DIM], part[TM];
+    float sigt[NP][TM], al[NP][DIM], be[NP][DIM], ga[NP][DIM], part[TM], partL[LAP ? TM : 1];
 #pragma unroll
     for (int c = 0; c < TM; ++c) part[c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < (LAP ? TM : 1); ++c) partL[c] = 0.f;
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       const int l = lane + 32 * p;
 #pragma unroll
       for (int c = 0; c < TM; ++c) sigt[p][c] = 0.f;
       if (l < n) {
-        float e[C0];
-        cg_d2r_pair<DIM>(xs, i, l, L, invL, k1, k2, e, al[p], be[p], ga[p]);
+        float e[C0], hd, ltp[C0];
+        cg_d2r_pair<DIM, LAP>(xs, i, l, L, invL, k1, k2, e, al[p], be[p], ga[p], &hd);
+        if constexpr (LAP) {  // the pair's Laplacian of tp0, zero at l == i
+          const float m2k = l == i ? 0.f : -2.f * k2 * k2;
+#pragma unroll
+          for (int c = 0; c < 2 * DIM; ++c) ltp[c] = m2k * e[c];
+          ltp[2 * DIM] = 2.f * hd;
+        }
 #pragma unroll
         for (int c = 0; c < TM; ++c)
           if (c < T) {
@@ -925,19 +547,32 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
             for (int q = 0; q < C0; ++q) pre = fmaf(e[q], wq[q], pre);
             // sigmoid and softplus from one exponential
             const float ez = __expf(-fabsf(pre)), r = __fdividef(1.f, 1.f + ez);
-            sigt[p][c] = pre >= 0.f ? r : ez * r;
+            const float sg = pre >= 0.f ? r : ez * r;
+            sigt[p][c] = sg;
             part[c] += fmaxf(pre, 0.f) + __logf(1.f + ez);
+            if constexpr (LAP) {  // Ltp1 = sg (Ltp0 wt) + sg (1 - sg) 2 |A0 wt|^2
+              float ltw = 0.f, sq = 0.f;
+#pragma unroll
+              for (int q = 0; q < C0; ++q) ltw = fmaf(ltp[q], wq[q], ltw);
+#pragma unroll
+              for (int d = 0; d < DIM; ++d) {
+                const float awt = al[p][d] * wq[d] + be[p][d] * wq[DIM + d] + ga[p][d] * wq[2 * DIM];
+                sq = fmaf(awt, awt, sq);
+              }
+              partL[c] += sg * ltw + sg * (1.f - sg) * 2.f * sq;
+            }
           }
       } else {
 #pragma unroll
         for (int d = 0; d < DIM; ++d) al[p][d] = be[p][d] = ga[p][d] = 0.f;
       }
     }
-    const float sum = cg_d2r_tree<TM>(part, lane);
-    if ((lane & (32 / TM - 1)) == 0) rs[lane / (32 / TM)] = sum;  // sum_j tp1[i][j]
+    cg_d2r_tree_to<TM>(part, lane, rs);  // sum_j tp1[i][j]
+    if constexpr (LAP) cg_d2r_tree_to<TM>(partL, lane, rsL);  // sum_j Ltp1[i][j]
     __syncwarp();
-    // the final sp layer of row i, and u
-    float ub[DIM];
+    // the final sp layer of row i, and u; with the Laplacian lane s2 keeps
+    // Lsp1 + sig1 (Lf W1f) and sig1 (1 - sig1) of feature s2 (S <= 32)
+    float ub[DIM], keepL = 0.f, keepG = 0.f;
 #pragma unroll
     for (int b = 0; b < DIM; ++b) ub[b] = 0.f;
     for (int s2 = lane; s2 < S; s2 += 32) {
@@ -950,6 +585,13 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
       const float fin = sp1[i * S + s2] + cg_d2_softplus(pre);
 #pragma unroll
       for (int b = 0; b < DIM; ++b) ub[b] += fin * wf[s2 * dim + b];
+      if (LAP) {
+        float lf = LB[s2];
+        for (int s = 0; s < S; ++s) lf += Lsp1[i * S + s] * W1[s * S + s2];
+        for (int c = 0; c < T; ++c) lf += rsL[c] * inv_n * W3[c * S + s2];
+        keepL = Lsp1[i * S + s2] + sg1 * lf;
+        keepG = sg1 * (1.f - sg1);
+      }
     }
 #pragma unroll
     for (int b = 0; b < DIM; ++b) {
@@ -994,6 +636,13 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
       const int c = idx / (C0 * dim), r = idx % (C0 * dim);
       Qm[c * QW + r] = wt[(r / dim) * T + c] * Nm[c * dim + r % dim];
     }
+    if (LAP)  // Pq_i = diag(sig0_i) W3_0 W1, so that (sig0_i * A0 W3_0) W1 = A0 Pq_i
+      for (int idx = lane; idx < C0 * S; idx += 32) {
+        const int q = idx / S, s2 = idx % S;
+        float acc = 0.f;
+        for (int s = 0; s < S; ++s) acc += sig0[i * SS + s] * w30[q * S + s] * W1[s * S + s2];
+        Pq[q * S4 + s2] = acc;
+      }
     __syncwarp();
     // the blocks (i, l): A0[i][l] K_i + A1[i][l] N_i + G_l R_i
     float blk[NP][DIM][DIM], a1s[DIM][DIM];
@@ -1072,63 +721,141 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
           Jw[(size_t)(i * dim + b) * nd + l * dim + a] = v;  // row (i, b): a line of nd floats
         }
     }
+    if constexpr (LAP) {
+      // ---- the Laplacian of row i: U[i][l] from the tp sigmoids in registers
+      float q[SM], us[DIM][SM];
+#pragma unroll
+      for (int s = 0; s < SM; ++s) {
+        q[s] = 0.f;
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) us[d][s] = 0.f;
+      }
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int l = lane + 32 * p;
+        if (l >= n) continue;
+        // X = A0[i][l] Pq_i + A1[i][l] W3, four features at a time (pads zero)
+        float X[DIM][SM];
+#pragma unroll
+        for (int s0 = 0; s0 < SM; s0 += 4)
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) {
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (s0 < S) {
+              const float4 pa = *reinterpret_cast<const float4*>(Pq + d * S4 + s0);
+              const float4 pb = *reinterpret_cast<const float4*>(Pq + (DIM + d) * S4 + s0);
+              const float4 pg = *reinterpret_cast<const float4*>(Pq + 2 * DIM * S4 + s0);
+              v.x = al[p][d] * pa.x + be[p][d] * pb.x + ga[p][d] * pg.x;
+              v.y = al[p][d] * pa.y + be[p][d] * pb.y + ga[p][d] * pg.y;
+              v.z = al[p][d] * pa.z + be[p][d] * pb.z + ga[p][d] * pg.z;
+              v.w = al[p][d] * pa.w + be[p][d] * pb.w + ga[p][d] * pg.w;
+            }
+            X[d][s0] = v.x;
+            X[d][s0 + 1] = v.y;
+            X[d][s0 + 2] = v.z;
+            X[d][s0 + 3] = v.w;
+          }
+#pragma unroll
+        for (int c = 0; c < TM; ++c)
+          if (c < T) {
+            const float4 wa = *reinterpret_cast<const float4*>(WTB + 8 * c);
+            const float4 wb = *reinterpret_cast<const float4*>(WTB + 8 * c + 4);
+            const float wq[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+            float a1[DIM];  // A1[i][l][d][c]
+#pragma unroll
+            for (int d = 0; d < DIM; ++d)
+              a1[d] = sigt[p][c] * (al[p][d] * wq[d] + be[p][d] * wq[DIM + d] + ga[p][d] * wq[2 * DIM]);
+#pragma unroll
+            for (int s0 = 0; s0 < SM; s0 += 4)
+              if (s0 < S) {
+                const float4 w3 = *reinterpret_cast<const float4*>(W3p + c * S4 + s0);
+#pragma unroll
+                for (int d = 0; d < DIM; ++d) {
+                  X[d][s0] = fmaf(a1[d], w3.x, X[d][s0]);
+                  X[d][s0 + 1] = fmaf(a1[d], w3.y, X[d][s0 + 1]);
+                  X[d][s0 + 2] = fmaf(a1[d], w3.z, X[d][s0 + 2]);
+                  X[d][s0 + 3] = fmaf(a1[d], w3.w, X[d][s0 + 3]);
+                }
+              }
+          }
+        // U = -X / n; the row sums of |U + V_l|^2 and of U
+#pragma unroll
+        for (int s0 = 0; s0 < SM; s0 += 4)
+          if (s0 < S)
+#pragma unroll
+            for (int d = 0; d < DIM; ++d) {
+              const float4 v = *reinterpret_cast<const float4*>(Vm + l * GS + d * S4 + s0);
+              const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const float U = -X[d][s0 + k] * inv_n, t = U + vv[k];
+                q[s0 + k] = fmaf(t, t, q[s0 + k]);
+                us[d][s0 + k] += U;
+              }
+            }
+      }
+      // lane s2 takes feature s2 of each sum over the lanes; T_i = -sum_l U[i][l]
+      const int from = (lane & (SM - 1)) * (32 / SM);
+      float sq1 = __shfl_sync(0xffffffffu, cg_d2r_tree<SM>(q, lane), from);
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) {
+        const float Td = -__shfl_sync(0xffffffffu, cg_d2r_tree<SM>(us[d], lane), from);
+        const float vi = lane < S ? Vm[i * GS + d * S4 + lane] : 0.f;
+        sq1 += Td * (Td + 2.f * vi);
+      }
+      const float fin = keepL + keepG * sq1;  // 0 on lanes >= S
+#pragma unroll
+      for (int b = 0; b < DIM; ++b) {
+        const float tot = cg_d2r_allsum(lane < S ? fin * wf[lane * dim + b] : 0.f);
+        if (lane == 0) lap[w * nd + i * dim + b] = tot;
+      }
+    }
     __syncwarp();
   }
 }
 
 #ifndef CG_CPU_SHIM
-template <int DIM, int SM, int TM, int NP, bool EX>
+template <int DIM, int SM, int TM, int NP, bool EX, bool LAP>
 static cudaError_t cg_launch_flow_d2_rows_w(const float* x, const float* params, float* u,
-                                            float* J, int B, int n, int S, int T, float L,
-                                            cudaStream_t st) {
-  const int smem = (int)sizeof(float) * cg_d2r_make_layout(n, DIM, S, T).total;
+                                            float* J, float* lap, int B, int n, int S, int T,
+                                            float L, cudaStream_t st) {
+  const int smem = (int)sizeof(float) * cg_d2r_make_layout(n, DIM, S, T, LAP).total;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(cg_flow_d2_rows_kernel<DIM, SM, TM, NP, EX>,
+    cudaError_t e = cudaFuncSetAttribute(cg_flow_d2_rows_kernel<DIM, SM, TM, NP, EX, LAP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  cg_flow_d2_rows_kernel<DIM, SM, TM, NP, EX><<<B, 32 * CG_D2R_WARPS, smem, st>>>(x, params, u, J,
-                                                                                  n, S, T, L);
+  cg_flow_d2_rows_kernel<DIM, SM, TM, NP, EX, LAP><<<B, 32 * CG_D2R_WARPS, smem, st>>>(
+      x, params, u, J, lap, n, S, T, L);
   return cudaGetLastError();
 }
 
-template <int DIM>
+template <int DIM, bool LAP>
 static cudaError_t cg_launch_flow_d2_rows(const float* x, const float* params, float* u,
-                                          float* J, int B, int n, int S, int T, float L,
-                                          cudaStream_t st) {
+                                          float* J, float* lap, int B, int n, int S, int T,
+                                          float L, cudaStream_t st) {
   // the production widths 16/16 at their own instantiations, any other
   // widths up to 32 at one with run-time widths
   if (S != 16 || T != 16)
-    return cg_launch_flow_d2_rows_w<DIM, 32, 32, 2, false>(x, params, u, J, B, n, S, T, L, st);
+    return cg_launch_flow_d2_rows_w<DIM, 32, 32, 2, false, LAP>(x, params, u, J, lap, B, n, S, T,
+                                                                L, st);
   if (n <= 32)
-    return cg_launch_flow_d2_rows_w<DIM, 16, 16, 1, true>(x, params, u, J, B, n, S, T, L, st);
-  return cg_launch_flow_d2_rows_w<DIM, 16, 16, 2, true>(x, params, u, J, B, n, S, T, L, st);
-}
-
-template <bool LAP, int DIM_>
-static cudaError_t cg_launch_flow_d2_dim(const float* x, const float* params, float* u,
-                                         float* J, float* lap, int B, int n, int S, int T,
-                                         float L, cudaStream_t st) {
-  const int smem = (int)sizeof(float) * cg_d2_make_layout(n, DIM_, S, T, LAP).total;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(cg_flow_d2_kernel<LAP, DIM_>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  cg_flow_d2_kernel<LAP, DIM_><<<B, CG_D2_THREADS, smem, st>>>(x, params, u, J, lap, n, S, T, L);
-  return cudaGetLastError();
+    return cg_launch_flow_d2_rows_w<DIM, 16, 16, 1, true, LAP>(x, params, u, J, lap, B, n, S, T,
+                                                               L, st);
+  return cg_launch_flow_d2_rows_w<DIM, 16, 16, 2, true, LAP>(x, params, u, J, lap, B, n, S, T, L,
+                                                             st);
 }
 
 template <bool LAP>
-static cudaError_t cg_launch_flow_d2(const float* x, const float* params, float* u, float* J,
-                                     float* lap, int B, int n, int dim, int S, int T, float L,
-                                     cudaStream_t st) {
+static int cg_launch_flow_d2(const float* x, const float* params, float* u, float* J, float* lap,
+                             int B, int n, int dim, int S, int T, float L, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
   switch (dim) {
-    case 1: return cg_launch_flow_d2_dim<LAP, 1>(x, params, u, J, lap, B, n, S, T, L, st);
-    case 2: return cg_launch_flow_d2_dim<LAP, 2>(x, params, u, J, lap, B, n, S, T, L, st);
-    case 3: return cg_launch_flow_d2_dim<LAP, 3>(x, params, u, J, lap, B, n, S, T, L, st);
+    case 1: return (int)cg_launch_flow_d2_rows<1, LAP>(x, params, u, J, lap, B, n, S, T, L, st);
+    case 2: return (int)cg_launch_flow_d2_rows<2, LAP>(x, params, u, J, lap, B, n, S, T, L, st);
+    case 3: return (int)cg_launch_flow_d2_rows<3, LAP>(x, params, u, J, lap, B, n, S, T, L, st);
   }
-  return cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" {
@@ -1136,14 +863,13 @@ extern "C" {
 int cg_flow_d2_param_count(int dim, int S, int T) { return cg_d2_params(dim, S, T); }
 
 // Shared memory of one block in bytes of K5 (lap = 0) or K6 (lap = 1); -1
-// where dim, or for K5 n or a width, is beyond what the kernel takes.
+// where n, dim or a width is beyond what the kernel takes (n <= 64, dim <= 3,
+// widths <= 32: a lane owns at most two pairs of a row, and the row sums and
+// feature loops hold at most 32 values a lane).
 int cg_flow_d2_smem(int n, int dim, int S, int T, int lap) {
   if (dim < 1 || dim > CG_D2_MAXDIM || n < 1 || S < 1 || T < 1) return -1;
-  if (!lap) {
-    if (n > CG_D2R_MAXN || S > CG_D2R_MAXW || T > CG_D2R_MAXW) return -1;
-    return (int)sizeof(float) * cg_d2r_make_layout(n, dim, S, T).total;
-  }
-  return (int)sizeof(float) * cg_d2_make_layout(n, dim, S, T, true).total;
+  if (n > CG_D2R_MAXN || S > CG_D2R_MAXW || T > CG_D2R_MAXW) return -1;
+  return (int)sizeof(float) * cg_d2r_make_layout(n, dim, S, T, lap != 0).total;
 }
 
 // x (B, n, dim), params packed as above, u (B, n, dim), J (B, nd, nd); all
@@ -1152,13 +878,7 @@ int cg_flow_d2_u_jac(const float* x, const float* params, float* u, float* J, in
                      int dim, int S, int T, float L, void* stream) {
   if (B <= 0) return 0;
   if (cg_flow_d2_smem(n, dim, S, T, 0) < 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (dim) {
-    case 1: return (int)cg_launch_flow_d2_rows<1>(x, params, u, J, B, n, S, T, L, st);
-    case 2: return (int)cg_launch_flow_d2_rows<2>(x, params, u, J, B, n, S, T, L, st);
-    case 3: return (int)cg_launch_flow_d2_rows<3>(x, params, u, J, B, n, S, T, L, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return cg_launch_flow_d2<false>(x, params, u, J, nullptr, B, n, dim, S, T, L, stream);
 }
 
 // The same plus lap (B, nd).
@@ -1166,8 +886,7 @@ int cg_flow_d2_u_jac_lap(const float* x, const float* params, float* u, float* J
                          int B, int n, int dim, int S, int T, float L, void* stream) {
   if (B <= 0) return 0;
   if (cg_flow_d2_smem(n, dim, S, T, 1) < 0) return (int)cudaErrorInvalidValue;
-  return (int)cg_launch_flow_d2<true>(x, params, u, J, lap, B, n, dim, S, T, L,
-                                      (cudaStream_t)stream);
+  return cg_launch_flow_d2<true>(x, params, u, J, lap, B, n, dim, S, T, L, stream);
 }
 
 }  // extern "C"

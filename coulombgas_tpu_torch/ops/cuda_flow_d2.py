@@ -1,14 +1,17 @@
 """Depth-2 closure flow kernels on the GPU — hand-written CUDA.
 
 Counterparts of ``coulombgas_tpu/ops/pallas_flow_jac.py:flow_u_jac_pallas_d2``
-and ``flow_u_jac_lap_pallas_d2``.  One source (``csrc/flow_d2.cu``), two
-kernels, both assembling u, J from the closed form of
+and ``flow_u_jac_lap_pallas_d2``.  One source (``csrc/flow_d2.cu``) and one
+kernel body, assembling u, J from the closed form of
 ``models.ferminet_jac.ferminet_apply_and_jac_d2`` — no carried
-``(n, n, dim, S)`` Jacobian state.  Depth 2 only.  K5 (u, J) gives each
-particle row a warp, whose lanes hold the row's pairs in registers, so its
-shared memory grows as n (n <= 64, widths <= 32).  K6 (u, J and the flow's
-coordinate Laplacian) gives one block per walker a table of the pair
-features in shared memory, which grows as n^2.
+``(n, n, dim, S)`` Jacobian state.  Depth 2 only.  K5 (u, J) and K6 (u, J
+and the flow's coordinate Laplacian) are its two instantiations: a block per
+walker, a warp per particle row, whose lanes hold the row's
+pairs in registers, so shared memory grows as n (n <= 64, widths <= 32,
+dim <= 3).  K6 adds, per pair, the Laplacian of the pair features and the
+pair's part U[i][l] of the final layer's squared first derivatives, a
+(dim x S) product summed over the row in registers; it does about twice K5's
+work a pair, bound by operations.
 
 Both are called outside autograd (the Metropolis logp, and the primal slot of
 the kinetic-energy engine), so neither has a backward: an input that requires
@@ -65,17 +68,16 @@ def _lib():
 
 def flow_d2_smem_bytes(n: int, dim: int, cfg, lap: bool = False) -> int:
     """Shared memory of one block of K5 (``lap`` False) or K6 as the built
-    library states it; -1 where dim > 3, or for K5 n > 64 or a width > 32."""
+    library states it; -1 where n > 64, dim > 3 or a width > 32."""
     return _lib().cg_flow_d2_smem(n, dim, cfg.spsize, cfg.tpsize, int(lap))
 
 
 def flow_d2_fits(n: int, dim: int, cfg, lap: bool = False, device=None) -> bool:
     """Whether the wrapper takes this size on ``device`` (default: CUDA):
-    depth 2 always; for the kernels also dim <= 3, for K5 (``lap`` False)
-    n <= 64 and widths <= 32, and for K6 its pair table within shared memory
-    (about 32 bytes a pair at dim 2; n = 57 at widths 16 fits).  This asks
-    the built library, so it needs ``nvcc``.  On a CPU device the wrapper
-    takes its plain version, which takes any size."""
+    depth 2 always; for the kernels, K5 and K6 (``lap``) alike, also n <= 64
+    (a lane owns at most two pairs of a row), widths <= 32 and dim <= 3.
+    This asks the built library, so it needs ``nvcc``.  On a CPU device the
+    wrapper takes its plain version, which takes any size."""
     if cfg.depth != 2:
         return False
     if device is not None and torch.device(device).type == "cpu":
@@ -104,10 +106,8 @@ def _launch(flow: FermiNet, x, lap: bool):
     if not flow_d2_fits(n, dim, cfg, lap):
         raise ValueError(
             "n = %d, dim = %d, spsize = %d, tpsize = %d is beyond the depth-2 closure "
-            "kernel (shared memory %d of %d bytes; -1: dim > 3, or without the "
-            "Laplacian n > 64 or a width > 32)" % (
-                n, dim, cfg.spsize, cfg.tpsize,
-                flow_d2_smem_bytes(n, dim, cfg, lap), SMEM_LIMIT_BYTES))
+            "kernel (it takes n <= 64, dim <= 3 and widths <= 32)" % (
+                n, dim, cfg.spsize, cfg.tpsize))
     params = pack_flow_params(flow)
     if params.device != x.device:
         raise ValueError("flow parameters and x must lie on one device")

@@ -381,8 +381,8 @@ def build_trainer(args, out_folder=None) -> Trainer:
         if not flow_d2_fits(n, dim, flow_cfg, lap=True, device=device):
             raise SystemExit(
                 "main_torch.py: --acc_d2_kernel requested but the depth-2 closure kernel "
-                "cannot engage: n = %d, dim = %d, widths %d/%d exceed its shared memory"
-                % (n, dim, args.spsize, args.tpsize))
+                "cannot engage: n = %d, dim = %d, widths %d/%d are beyond its limits "
+                "(n <= 64, dim <= 3, widths <= 32)" % (n, dim, args.spsize, args.tpsize))
         flow_jac_lap_batched = flow_u_jac_lap_d2_cuda
     logpsi_grad_laplacian = make_logpsi_grad_laplacian_analytic(
         sp_indices_twist, L, flow_jac_lap, hutchinson=args.hutchinson, flow_jac=flow_jac,

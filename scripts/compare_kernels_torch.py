@@ -1,10 +1,10 @@
-"""Times two versions of the Metropolis logp kernels K1, K2 and K5 in turns on one GPU.
+"""Times two versions of the kernels K1, K2, K5 and K6 in turns on one GPU.
 
     python3 scripts/compare_kernels_torch.py --other DIR [DIR ...] [--out FILE]
 
 Each DIR holds another version's sources, any of ``flow_jac.cu`` (K1),
 ``fused_logp.cu`` with the headers it includes (K2: ``chol.cuh``,
-``chol_blocked.cuh``) and ``flow_d2.cu`` (K5), for example written there by
+``chol_blocked.cuh``) and ``flow_d2.cu`` (K5 and K6), for example written there by
 ``git show <commit>:coulombgas_tpu_torch/csrc/<file>``.  Both versions are
 built with the same ``nvcc`` flags, the package's into ``build/`` and the
 other into ``build/other/``, all sources in parallel.  At the two shapes the
@@ -13,7 +13,8 @@ batch 512 on the checked-in checkpoint's weights and walkers
 (``chip_smoke.load_n57``) — each kernel of DIR is timed in the order other,
 this, this, other (median of 20 launches by CUDA events each), and the two
 versions' outputs on the same inputs are compared; K5's lines also time the
-package's K1 on the same walkers.  Prints one JSON line per shape and
+package's K1 on the same walkers, K6's give its outputs' distance from the
+plain f64 closure.  Prints one JSON line per shape and
 kernel, and the ``nvidia-smi`` name and power limit; ``--out`` also writes
 them to a file.  Needs a CUDA device.
 """
@@ -57,13 +58,10 @@ def build_other(src_dir: str, tag: str = "other", rebuild_this: bool = True) -> 
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed for the other %s:\n%s" % (name, log))
-        ptxas[name] = [ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln or "entry function" in ln]
+        ptxas[name] = cs.ptxas_lines(log)
         libs[name] = ctypes.CDLL(os.path.join(out_dir, "lib%s.so" % name))
-    fns = {"ptxas": ptxas, "ptxas_this": {
-        name: [ln.strip() for ln in log.splitlines()
-               if "registers" in ln or "spill" in ln or "entry function" in ln]
-        for name, log in this_logs.items()}}
+    fns = {"ptxas": ptxas, "ptxas_this": {name: cs.ptxas_lines(log)
+                                          for name, log in this_logs.items()}}
     if "flow_jac" in libs:
         fns["flow"] = libs["flow_jac"].cg_flow_u_jac
         fns["flow"].argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
@@ -76,26 +74,34 @@ def build_other(src_dir: str, tag: str = "other", rebuild_this: bool = True) -> 
         fns["d2"] = libs["flow_d2"].cg_flow_d2_u_jac
         fns["d2"].argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_void_p]
-    for key in ("flow", "fused", "d2"):
+        fns["d2lap"] = libs["flow_d2"].cg_flow_d2_u_jac_lap
+        fns["d2lap"].argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_void_p]
+    for key in ("flow", "fused", "d2", "d2lap"):
         if key in fns:
             fns[key].restype = ctypes.c_int
     return fns
 
 
 def other_flow(lib, flow, x, key="flow"):
-    """The other K1 (``key="flow"``) or K5 (``key="d2"``) on x."""
+    """The other K1 (``key="flow"``), K5 (``"d2"``) or K6 (``"d2lap"``, which
+    also returns lap) on x."""
     B, n, dim = x.shape
     cfg = flow.cfg
     params = cuda_flow_jac.pack_flow_params(flow)
     u = torch.empty_like(x)
     J = torch.empty(B, n * dim, n * dim, device=x.device)
-    args = [x.data_ptr(), params.data_ptr(), u.data_ptr(), J.data_ptr(), B, n, dim]
+    lap = torch.empty(B, n * dim, device=x.device)
+    args = [x.data_ptr(), params.data_ptr(), u.data_ptr(), J.data_ptr()]
+    if key == "d2lap":
+        args.append(lap.data_ptr())
+    args += [B, n, dim]
     if key == "flow":
         args.append(cfg.depth)
     code = lib[key](*args, cfg.spsize, cfg.tpsize, float(cfg.L),
                     torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, "other " + key)
-    return u, J
+    return (u, J, lap) if key == "d2lap" else (u, J)
 
 
 def other_fused(lib, u, kvec, J, L):
@@ -149,6 +155,20 @@ def compare(lib, case29, case57) -> list:
                     "u_max_abs_diff": cs.max_err(u5, uo), "J_max_abs_diff": cs.max_err(J5, Jo),
                     "vs_flow_u_jac_u_J": [cs.max_err(u5, u), cs.max_err(J5, J)],
                     "bound_ms": cs.d2_flops(B, n, cs.DIM, cs.SPSIZE, cs.TPSIZE, False)[0]
+                    / cs.PEAK_F32_FLOPS * 1e3})
+                got = cuda_flow_d2.flow_u_jac_lap_d2_cuda(flow, x)
+                oth = other_flow(lib, flow, x, "d2lap")
+                flow64 = cs.init_ferminet_params(flow.cfg, cs.DIM, None, torch.float64, x.device)
+                flow64.load_state_dict({k: v.double() for k, v in flow.state_dict().items()})
+                ref = cuda_flow_d2.flow_u_jac_lap_d2_plain(flow64, x.double())
+                lines.append({
+                    "shape": tag, "kernel": "flow_u_jac_lap_d2",
+                    "ms": turns(lambda: other_flow(lib, flow, x, "d2lap"),
+                                lambda: cuda_flow_d2.flow_u_jac_lap_d2_cuda(flow, x)),
+                    "u_J_lap_max_abs_diff": [cs.max_err(a, b) for a, b in zip(got, oth)],
+                    "this_vs_plain_f64_u_J_lap": [cs.max_err(a, b) for a, b in zip(got, ref)],
+                    "other_vs_plain_f64_u_J_lap": [cs.max_err(a, b) for a, b in zip(oth, ref)],
+                    "bound_ms": cs.d2_flops(B, n, cs.DIM, cs.SPSIZE, cs.TPSIZE, True)[0]
                     / cs.PEAK_F32_FLOPS * 1e3})
             if "fused" in lib:
                 lp = cuda_fused_logp.fused_logp_cuda(u, kvec, J, L)
