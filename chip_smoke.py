@@ -21,9 +21,13 @@ exit code:
            the fused tail on the carried-state kernel's (u, J) there; the
            fused tail also with one zero column of J at a panel's first,
            middle and last column; the depth-2 closure kernels' refusals of
-           n 65 and a width of 48; the batched Cholesky log-det beside
-           torch.linalg.cholesky also at the accumulate's shape and the
-           stacked route's (m 114 and 171);
+           n 65 and a width of 48; the batched Cholesky log-det with its
+           launch plans and their blocks an SM, against plain f32 and f64 at
+           every shape it runs (m 171, 114, 58 at batches 2048 and 4096, 26)
+           and at the largest m it takes, on singular inputs (a zero row and
+           column at a panel's first, middle and last column, the zero
+           matrix), on batches of 1 and 3, a ragged one and every other plan
+           (bit for bit), and beside torch.linalg.cholesky at those shapes;
   train    two Adam epochs through main_torch.py's own functions at the
            default width, with the launch counters read around them, then one
            sample step on the route that uses the third kernel;
@@ -810,13 +814,12 @@ def phase_kernels():
           "chol_logdet: shared-memory budget")
     ldr = cuda_logdet.chol_logdet_cuda(A[:-1])
     check(ldr.shape[0] == K3_BATCH - 1 and torch.equal(ldr, ld[:-1]), "chol_logdet: ragged batch differs")
+    cases = k3_cases(J, A)
     ms = time_ms(lambda: cuda_logdet.chol_logdet_cuda(A), 20)
     plain_ms = time_ms(lambda: cuda_logdet.chol_logdet_plain(A), 5)
     library_ms = time_ms(
         lambda: 2 * torch.linalg.cholesky(A).diagonal(dim1=-2, dim2=-1).log().sum(-1), 10)
-    nbytes = 4 * K3_BATCH * (nd * nd + 1)
-    flops = K3_BATCH * nd**3 / 3
-    t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    t_b, t_o = k3_bound(K3_BATCH, nd)
     rows.append({
         "name": "chol_logdet", "route": "cuda",
         "source": "coulombgas_tpu_torch/csrc/chol_logdet.cu",
@@ -825,7 +828,7 @@ def phase_kernels():
         "p99_abs_err_f64": q64, "tolerance": 2 * TOL_LOGP_MAX, "tolerance_p99": 2 * TOL_LOGP,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
-        "library_ms": library_ms, "other_shapes": k3_shapes(J),
+        "library_ms": library_ms, "other_shapes": k3_shapes(J, A), "cases": cases,
     })
     emit({"phase": "kernels", "shapes": {"n": N, "dim": DIM, "depth": DEPTH, "spsize": SPSIZE,
                                          "tpsize": TPSIZE, "batch": BATCH, "k3_batch": K3_BATCH,
@@ -834,21 +837,111 @@ def phase_kernels():
     return rows
 
 
-def k3_shapes(J):
+def k3_bound(B, m):
+    """K3's least times in ms on the card, (by bytes, by operations), for B
+    m x m matrices: the lower triangles, m (m + 1) / 2 floats each, read
+    once and one float a matrix written; m^3 / 3 f32 operations a matrix."""
+    nbytes = 4 * B * (m * (m + 1) // 2 + 1)
+    return nbytes / PEAK_BYTES_PER_S * 1e3, B * m**3 / 3 / PEAK_F32_FLOPS * 1e3
+
+
+def random_spd(B, m, seed):
+    """B random SPD matrices X X^T / m + I / 2 on the card, f32."""
+    X = torch.randn(B, m, m, device=DEV, generator=torch.Generator(DEV).manual_seed(seed))
+    return (X @ X.mT / m + 0.5 * torch.eye(m, device=DEV)).contiguous()
+
+
+# K3's shapes: who calls it, batch, m (PERF.md section 6)
+K3_SHAPES = (("stacked_b512_m171", 512, 171), ("stacked_b512_m114", 512, 114),
+             ("accumulate_b2048_m58", BATCH, N * DIM), ("unfused_b4096_m58", K3_BATCH, N * DIM),
+             ("demo_accumulate_b2048_m26", 2048, 26))
+
+
+def k3_cases(J, A_stacked):
+    """K3 beyond the stacked Grams: its launch plan at each shape (with the
+    blocks an SM the runtime allows); against plain f32 and f64 at each shape
+    of ``K3_SHAPES`` and at the largest m it takes (random SPD matrices, J J^T
+    at the accumulate's shape, ``A_stacked`` at the unfused route's);
+    singular inputs, a zero row and column at a panel's first, middle and
+    last column and the zero matrix; batches of 1 and 3 and a ragged one,
+    and every other plan that fits, bit for bit against the full batch."""
+    out = {"plans": {}, "errors": {}}
+    inputs = {"accumulate_b2048_m58": torch.einsum("bij,bkj->bik", J, J).contiguous(),
+              "unfused_b4096_m58": A_stacked}
+    shapes = K3_SHAPES + (("largest_b64_m%d" % cuda_logdet.K3_MAX_M, 64, cuda_logdet.K3_MAX_M),)
+    for k, (tag, B, m) in enumerate(shapes):
+        A = inputs[tag] if tag in inputs else random_spd(B, m, 10 + k)
+        plan = cuda_logdet._plan(m, B, DEV.index or 0)
+        out["plans"][tag] = dict(plan._asdict(), occupancy=cuda_logdet.occupancy(plan))
+        check(out["plans"][tag]["occupancy"] >= plan.blocks_per_sm,
+              "chol_logdet plan %s: the runtime holds %d blocks an SM" % (plan, out["plans"][tag]["occupancy"]))
+        ld = cuda_logdet.chol_logdet_cuda(A)
+        torch.cuda.synchronize()
+        ld32 = cuda_logdet.chol_logdet_plain(A)
+        ld64 = cuda_logdet.chol_logdet_plain(A.double())
+        e = {"f32": [max_err(ld, ld32), p99_err(ld, ld32)], "f64": [max_err(ld, ld64), p99_err(ld, ld64)]}
+        out["errors"][tag] = e
+        check(bool(torch.isfinite(ld).all()) and all(v[0] <= 2 * TOL_LOGP_MAX and v[1] <= 2 * TOL_LOGP
+                                                     for v in e.values()),
+              "chol_logdet at %s vs plain: %s" % (tag, e))
+        # batches of 1 and 3, a ragged one, and the other plans: the same bits
+        for sub in (1, 3, B - 1):
+            check(torch.equal(cuda_logdet.chol_logdet_cuda(A[:sub].contiguous()), ld[:sub]),
+                  "chol_logdet at %s: batch of %d differs from the full batch" % (tag, sub))
+        others = 0
+        sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+        for p in cuda_logdet.k3_plans(m, B, sms):
+            if p != plan:
+                others += 1
+                check(torch.equal(cuda_logdet._launch(A, p), ld),
+                      "chol_logdet at %s: plan %s differs from %s" % (tag, p, plan))
+        out["plans"][tag]["other_plans_bit_equal"] = others
+        if tag in ("stacked_b512_m171", "accumulate_b2048_m58", "demo_accumulate_b2048_m26"):
+            out["errors"][tag]["singular"] = k3_singular(A[:64], ld[:64])
+    return out
+
+
+def k3_singular(A, ld):
+    """A zero row and column at a panel's (8 columns) first, middle and last
+    column, 8, 12 and 15 (below m 16: the last), and the zero matrix: finite,
+    strongly negative, against plain f32 and f64; the zero matrix's m
+    deflated pivots against m log(PIVOT_FLOOR).  The matrices are scaled to
+    determinant 1 first (random SPD ones at m 171 have log det near +35), so
+    that one deflated pivot, log(PIVOT_FLOOR) = -69, puts the value below
+    -40."""
+    m = A.shape[-1]
+    scale = torch.exp(-ld.double() / m).float()
+    As = A * scale[:, None, None]
+    ld = cuda_logdet.chol_logdet_cuda(As.contiguous())
+    for b in range(1, As.shape[0]):
+        col = (8, 12, 15)[b % 3] if m > 15 else m - 1
+        As[b, col, :] = 0
+        As[b, :, col] = 0
+    As[0] = 0
+    got = cuda_logdet.chol_logdet_cuda(As)
+    torch.cuda.synchronize()
+    e = {"f32": max_err(got, cuda_logdet.chol_logdet_plain(As)),
+         "f64": max_err(got, cuda_logdet.chol_logdet_plain(As.double())),
+         "zero_matrix_rel": abs(float(got[0]) / (m * math.log(1e-30)) - 1)}
+    check(bool(torch.isfinite(got).all()) and float(got.max()) < -40
+          and float((got[1:] - ld[1:]).max()) < -40 and e["f32"] <= 2 * TOL_LOGP
+          and e["f64"] <= 2 * TOL_LOGP_MAX and e["zero_matrix_rel"] <= 1e-5,
+          "chol_logdet, singular inputs at m %d: max %g, %s" % (m, float(got.max()), e))
+    return e
+
+
+def k3_shapes(J, A_stacked):
     """K3 beside ``torch.linalg.cholesky`` + log-diag, in turns (K3, library,
-    library, K3), at the accumulate's shape (J J^T of the main path, batch
-    2048, m 58) and at the stacked route's past K2 (n 57, dim 3, batch 512:
-    the plane-wave Gram embedding, m 114, and J's Gram, m 171; random SPD
-    matrices of those sizes)."""
-    gen = torch.Generator(DEV).manual_seed(3)
+    library, K3), at the shapes of ``K3_SHAPES``: the accumulate's (J J^T of
+    the main path, batch 2048, m 58; the n 13 demo's, m 26), the stacked
+    route's past K2 (n 57, dim 3, batch 512: the plane-wave Gram embedding,
+    m 114, and J's Gram, m 171) and the unfused route's (both Grams stacked,
+    batch 4096, m 58); random SPD matrices except at m 58."""
     out = {}
-    for tag, B, m in (("accumulate_b2048_m58", BATCH, N * DIM), ("stacked_b512_m114", 512, 114),
-                      ("stacked_b512_m171", 512, 171)):
-        if m == N * DIM:
-            A = torch.einsum("bij,bkj->bik", J, J).contiguous()
-        else:
-            X = torch.randn(B, m, m, device=DEV, generator=gen)
-            A = (X @ X.mT / m + 0.5 * torch.eye(m, device=DEV)).contiguous()
+    inputs = {"accumulate_b2048_m58": torch.einsum("bij,bkj->bik", J, J).contiguous(),
+              "unfused_b4096_m58": A_stacked}
+    for k, (tag, B, m) in enumerate(K3_SHAPES):
+        A = inputs[tag] if tag in inputs else random_spd(B, m, 3 + k)
         ld = cuda_logdet.chol_logdet_cuda(A)
         ld64 = cuda_logdet.chol_logdet_plain(A.double())
         err = max_err(ld, ld64)
@@ -861,8 +954,9 @@ def k3_shapes(J):
         for who in ("k3", "library", "library", "k3"):
             ms[who].append(time_ms(lib if who == "library" else
                                    (lambda: cuda_logdet.chol_logdet_cuda(A)), 20))
-        t_b, t_o = 4 * B * (m * m + 1) / PEAK_BYTES_PER_S * 1e3, B * m**3 / 3 / PEAK_F32_FLOPS * 1e3
+        t_b, t_o = k3_bound(B, m)
         out[tag] = {"batch": B, "m": m, "ms": statistics.mean(ms["k3"]),
+                    "ms_b2b": time_ms_b2b(lambda: cuda_logdet.chol_logdet_cuda(A), 20),
                     "library_ms": statistics.mean(ms["library"]), "turns": ms,
                     "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
                     "max_abs_err_f64": err}

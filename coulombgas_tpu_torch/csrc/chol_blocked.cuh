@@ -1,8 +1,9 @@
 // Blocked, deflating, pivot-free Cholesky eliminations run by a group of
 // warps of a block, synchronised by their own named barrier.  Used by
-// fused_logp.cu, where two groups eliminate two matrices at the same time;
-// chol.cuh keeps the block-wide one-step-per-barrier form that
-// chol_logdet.cu uses.
+// fused_logp.cu, where two groups eliminate two matrices at the same time.
+// chol_logdet.cu runs the same order on its own packed storage, every warp
+// of its group factoring the panel for its own rows in registers, and takes
+// CG_NB, cg_pad_real and cg_tri_tile from here.
 //
 // Semantics are those of chol.cuh (and of ops/logdet.py:chol_logdet_ref):
 // at step k the pivot d = A[k][k]; d < PIVOT_FLOOR deflates the step — it

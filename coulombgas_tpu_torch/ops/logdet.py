@@ -166,7 +166,7 @@ def chol_logdet(A):
 
     A CUDA tensor goes to the hand-written kernel (``ops/cuda_logdet.py``),
     which raises if it cannot run; a CPU tensor goes to ``chol_logdet_ref``.
-    An m beyond the kernel's shared memory (``chol_logdet_fits``) takes
+    An m past the kernel's limit, ``K3_MAX_M`` (``chol_logdet_fits``), takes
     ``chol_logdet_ref`` on the tensor's own device, as the JAX package's
     kernel hands an m beyond its VMEM budget to its plain elimination.
     """

@@ -1,20 +1,28 @@
-"""Times two versions of the kernels K1, K2, K5 and K6 in turns on one GPU.
+"""Times two versions of the kernels K1, K2, K3, K5 and K6 in turns on one GPU.
 
-    python3 scripts/compare_kernels_torch.py --other DIR [DIR ...] [--out FILE]
+    python3 scripts/compare_kernels_torch.py [--other DIR [DIR ...]] [--k3_plans] [--out FILE]
 
 Each DIR holds another version's sources, any of ``flow_jac.cu`` (K1),
 ``fused_logp.cu`` with the headers it includes (K2: ``chol.cuh``,
-``chol_blocked.cuh``) and ``flow_d2.cu`` (K5 and K6), for example written there by
+``chol_blocked.cuh``), ``chol_logdet.cu`` with the same headers (K3) and
+``flow_d2.cu`` (K5 and K6), for example written there by
 ``git show <commit>:coulombgas_tpu_torch/csrc/<file>``.  Both versions are
 built with the same ``nvcc`` flags, the package's into ``build/`` and the
-other into ``build/other/``, all sources in parallel.  At the two shapes the
-main paths run — n = 29, batch 2048 (``chip_smoke.make_inputs``) and n = 57,
-batch 512 on the checked-in checkpoint's weights and walkers
+other into ``build/other<k>/``, all sources in parallel.  At the two shapes
+the main paths run — n = 29, batch 2048 (``chip_smoke.make_inputs``) and
+n = 57, batch 512 on the checked-in checkpoint's weights and walkers
 (``chip_smoke.load_n57``) — each kernel of DIR is timed in the order other,
 this, this, other (median of 20 launches by CUDA events each), and the two
 versions' outputs on the same inputs are compared; K5's lines also time the
 package's K1 on the same walkers, K6's give its outputs' distance from the
-plain f64 closure.  Prints one JSON line per shape and
+plain f64 closure.  K3 is compared at its own shapes (``chip_smoke.K3_SHAPES``,
+random SPD matrices) in the order other, this, library, library, this, other,
+the library being ``torch.linalg.cholesky`` + log-diag; another K3 with the
+parent's launcher (A, out, B, m, stream) runs as it is, one with a launch
+plan gets the package's ``k3_plan``.  ``--k3_plans`` times the package's K3
+under every launch plan it can run (``cuda_logdet.k3_plans``) at those shapes
+and at m 241, back to back, checks that each gives the package's plan's bits,
+and times the library call beside them.  Prints one JSON line per shape and
 kernel, and the ``nvidia-smi`` name and power limit; ``--out`` also writes
 them to a file.  Needs a CUDA device.
 """
@@ -33,7 +41,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
-from coulombgas_tpu_torch.ops import _build, cuda_flow_d2, cuda_flow_jac, cuda_fused_logp  # noqa: E402
+from coulombgas_tpu_torch.ops import (  # noqa: E402
+    _build, cuda_flow_d2, cuda_flow_jac, cuda_fused_logp, cuda_logdet,
+)
 
 
 def build_other(src_dir: str, tag: str = "other", rebuild_this: bool = True) -> dict:
@@ -43,7 +53,7 @@ def build_other(src_dir: str, tag: str = "other", rebuild_this: bool = True) -> 
     ptxas lines of both."""
     out_dir = os.path.join(_build.BUILD_DIR, tag)
     os.makedirs(out_dir, exist_ok=True)
-    names = [nm for nm in ("flow_jac", "fused_logp", "flow_d2")
+    names = [nm for nm in ("flow_jac", "fused_logp", "flow_d2", "chol_logdet")
              if os.path.isfile(os.path.join(src_dir, nm + ".cu"))]
     procs = {}
     for name in names:
@@ -77,7 +87,18 @@ def build_other(src_dir: str, tag: str = "other", rebuild_this: bool = True) -> 
         fns["d2lap"] = libs["flow_d2"].cg_flow_d2_u_jac_lap
         fns["d2lap"].argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_void_p]
-    for key in ("flow", "fused", "d2", "d2lap"):
+    if "chol_logdet" in libs:
+        lib = libs["chol_logdet"]
+        fns["k3"] = lib.cg_chol_logdet
+        fns["k3_planned"] = hasattr(lib, "cg_chol_logdet_occupancy")
+        if fns["k3_planned"]:  # (A, out, B, m, warps, groups, smem, grid, stream)
+            fns["k3"].argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fns["k3_smem"] = lib.cg_chol_logdet_smem
+            fns["k3_smem"].argtypes = [ctypes.c_int] * 2
+            fns["k3_smem"].restype = ctypes.c_int
+        else:  # the parent's: (A, out, B, m, stream)
+            fns["k3"].argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    for key in ("flow", "fused", "d2", "d2lap", "k3"):
         if key in fns:
             fns[key].restype = ctypes.c_int
     return fns
@@ -111,6 +132,81 @@ def other_fused(lib, u, kvec, J, L):
                         float(L) ** (-dim / 2), torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, "other fused_logp")
     return out
+
+
+def other_k3(lib, A):
+    """The other K3 on A (B, m, m); with a launch plan, the package's."""
+    B, m, _ = A.shape
+    out = torch.empty(B, device=A.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    if lib["k3_planned"]:
+        p = cuda_logdet._plan(m, B, A.device.index)
+        code = lib["k3"](A.data_ptr(), out.data_ptr(), B, m, p.warps, p.groups,
+                         lib["k3_smem"](m, p.groups), p.grid, stream)
+    else:
+        code = lib["k3"](A.data_ptr(), out.data_ptr(), B, m, stream)
+    _build.check_launch(code, "other chol_logdet")
+    return out
+
+
+def compare_k3(lib, reps: int = 20) -> list:
+    """One JSON line per K3 shape: the two versions and the library call in
+    turns (other, this, library, library, this, other), per call and back to
+    back, and the versions' outputs against each other and plain f64."""
+    lines = []
+    for k, (tag, B, m) in enumerate(cs.K3_SHAPES):
+        A = cs.random_spd(B, m, 3 + k)
+        got, oth = cuda_logdet.chol_logdet_cuda(A), other_k3(lib, A)
+        ref = cuda_logdet.chol_logdet_plain(A.double())
+        fns = {"other": lambda: other_k3(lib, A), "this": lambda: cuda_logdet.chol_logdet_cuda(A),
+               "library": lambda: library_k3(A)}
+        ms = {k2: [] for name in fns for k2 in (name, name + "_b2b")}
+        for who in ("other", "this", "library", "library", "this", "other"):
+            ms[who].append(cs.time_ms(fns[who], reps))
+            ms[who + "_b2b"].append(cs.time_ms_b2b(fns[who], reps))
+        t_b, t_o = cs.k3_bound(B, m)
+        lines.append({"shape": tag, "kernel": "chol_logdet", "batch": B, "m": m, "ms": ms,
+                      "bit_equal": bool(torch.equal(got, oth)), "max_abs_diff": cs.max_err(got, oth),
+                      "this_vs_plain_f64": cs.max_err(got, ref),
+                      "other_vs_plain_f64": cs.max_err(oth, ref),
+                      "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations"})
+    return lines
+
+
+def sweep_k3_plans(reps: int = 20) -> list:
+    """One JSON line per K3 shape (``chip_smoke.K3_SHAPES`` and B 512 /
+    m 241, random SPD matrices): every plan of ``cuda_logdet.k3_plans``
+    timed back to back and checked bit for bit against the package's plan,
+    beside the library call timed the same way before and after."""
+    lines = []
+    sms = torch.cuda.get_device_properties(cs.DEV).multi_processor_count
+    for k, (tag, B, m) in enumerate(cs.K3_SHAPES + (("b512_m241", 512, 241),)):
+        A = cs.random_spd(B, m, 20 + k)
+        default = cuda_logdet.k3_plan(m, B, sms)
+        ref = cuda_logdet.chol_logdet_cuda(A)
+        lib_ms = [cs.time_ms_b2b(lambda: library_k3(A), reps)]
+        rows = []
+        for p in cuda_logdet.k3_plans(m, B, sms):
+            cs.check(torch.equal(cuda_logdet._launch(A, p), ref),
+                     "K3 at %s: plan %s differs from %s" % (tag, p, default))
+            rows.append(dict(p._asdict(), occupancy=cuda_logdet.occupancy(p),
+                             ms_b2b=cs.time_ms_b2b(lambda: cuda_logdet._launch(A, p), reps)))
+        lib_ms.append(cs.time_ms_b2b(lambda: library_k3(A), reps))
+        rows.sort(key=lambda r: r["ms_b2b"])
+        t_b, t_o = cs.k3_bound(B, m)
+        lines.append({"shape": tag, "kernel": "chol_logdet_plans", "batch": B, "m": m,
+                      "default": default._asdict(),
+                      "default_ms_b2b": next(r["ms_b2b"] for r in rows
+                                             if (r["warps"], r["groups"])
+                                             == (default.warps, default.groups)),
+                      "library_ms_b2b": lib_ms, "bound_ms": max(t_b, t_o),
+                      "bound_by": "bytes" if t_b >= t_o else "operations", "plans": rows})
+    return lines
+
+
+def library_k3(A):
+    """``torch.linalg.cholesky`` + log-diag: the library call for K3."""
+    return 2 * torch.linalg.cholesky(A).diagonal(dim1=-2, dim2=-1).log().sum(-1)
 
 
 def turns(fn_other, fn_this, reps: int = 20) -> dict:
@@ -189,19 +285,32 @@ def compare(lib, case29, case57) -> list:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--other", required=True, nargs="+")
+    ap.add_argument("--other", default=[], nargs="*")
+    ap.add_argument("--k3_plans", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    if not args.other and not args.k3_plans:
+        ap.error("nothing to do: give --other DIR and/or --k3_plans")
     smi = cs.smi_line()
     libs = [build_other(d, "other%d" % k, k == 0) for k, d in enumerate(args.other)]
-    L29, _, flow29, x29, kvec29, _, _ = cs.make_inputs()
-    L57, flow57, x57 = cs.load_n57()
-    kvec57 = cs.n57_kvec()
+    if any(key in lib for lib in libs for key in ("flow", "fused", "d2")):
+        L29, _, flow29, x29, kvec29, _, _ = cs.make_inputs()
+        L57, flow57, x57 = cs.load_n57()
+        kvec57 = cs.n57_kvec()
     lines = []
     for other, lib in zip(args.other, libs):
         lines.append({"nvidia_smi": smi, "other": other, "ptxas_other": lib["ptxas"],
                       "ptxas_this": lib["ptxas_this"]})
-        lines += compare(lib, (L29, flow29, x29, kvec29), (L57, flow57, x57, kvec57))
+        if any(key in lib for key in ("flow", "fused", "d2")):
+            lines += compare(lib, (L29, flow29, x29, kvec29), (L57, flow57, x57, kvec57))
+        if "k3" in lib:
+            lines += compare_k3(lib)
+    if args.k3_plans:
+        if not libs:
+            lines.append({"nvidia_smi": smi, "ptxas_this": {
+                name: cs.ptxas_lines(log)
+                for name, log in _build.build_all(("chol_logdet",), force=True).items()}})
+        lines += sweep_k3_plans()
 
     for line in lines:
         print(json.dumps(line), flush=True)
