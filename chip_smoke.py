@@ -11,11 +11,13 @@ exit code:
   kernels  each hand-written kernel against its plain PyTorch version at the
            main path's shapes (n = 29, dim = 2, depth 2, widths 16,
            batch 2048): error in f32 and against f64, a singular input, a
-           ragged batch, and timings; the flow kernels (carried state,
-           depth-2 closure, row-chunked) also against each other; the
-           row-chunked kernels also at n = 57, batch 512, on the trained
-           weights and walkers of the checked-in n = 57 checkpoint, with the
-           carried-state kernel timed beside them there, the depth-2
+           ragged batch, and timings; the flow kernels (carried state K1,
+           depth-2 closure K5, depth-2 carried form K4) also against each
+           other; K4 also at n = 57, batch 512, on the trained weights and
+           walkers of the checked-in n = 57 checkpoint, timed back to back
+           in turns with K1 and K5 at both shapes, one call of it profiled
+           (one kernel launch), with the carried-state kernel timed beside
+           it there, the depth-2
            closure kernels there too (against both plain versions, K5 also
            against the carried-state kernel, the three timed in turns), and
            the fused tail on the carried-state kernel's (u, J) there; the
@@ -39,7 +41,7 @@ exit code:
            512, --sr --sr_solver host64 --tripwire_sigma 6) resumed from a
            copy of the checked-in epoch-100 checkpoint for 2 epochs (acc_steps
            cut from 16 to 2; no width is cut), then one sample step on the
-           row-chunked flow kernels (use_large_flow) with its counters, and
+           depth-2 carried-form kernel K4 (use_large_flow) with its counters, and
            its logp against the default route's on the same walkers;
   routes   the Metropolis logp past the kernels' size limits, left to
            choose its route: n = 65 (beyond the flow kernel: the analytic
@@ -96,7 +98,7 @@ PEAK_F32_FLOPS = 67e12
 # Main-path shapes.
 N, DIM, DEPTH, SPSIZE, TPSIZE, EMAX, BATCH = 29, 2, 2, 16, 16, 25, 2048
 K3_BATCH = 2 * BATCH
-# The production configuration of the row-chunked kernels, and its checked-in
+# The production configuration of the depth-2 carried-form kernel K4, and its checked-in
 # checkpoint (trained weights and thermalised walkers).
 N57, EMAX57, BATCH57 = 57, 49, 512
 N57_FOLDER = os.path.join("data", "interacting_n57_goodseed")
@@ -206,9 +208,12 @@ def phase_build():
     big = FermiNetConfig(DEPTH, SPSIZE, TPSIZE, 1.0)
     smem = {"%s_n%d" % (k, n): cuda_flow_d2.flow_d2_smem_bytes(n, DIM, big, k == "K6")
             for k in ("K5", "K6") for n in (N, N57)}
+    # K4's registers and spills, one line per instantiation
+    k4 = [ln for ln in ptxas.get("flow_large", []) if "cg_flow_large_kernel" in ln]
+    check(len(k4) > 0, "build: no ptxas line for K4's kernel")
     emit({"phase": "build", "seconds": round(time.time() - t0, 2),
           "sources": ["coulombgas_tpu_torch/csrc/%s.cu" % s for s in _build.KERNEL_SOURCES],
-          "ptxas": ptxas, "flow_d2_smem_bytes": smem})
+          "ptxas": ptxas, "ptxas_K4": k4, "flow_d2_smem_bytes": smem})
 
 
 def ptxas_lines(log: str) -> list:
@@ -292,7 +297,7 @@ def d2_flops(B, n, dim, S, T, lap: bool):
 
 
 def large_flops(B, n, dim, S, T):
-    """f32 operations of the row-chunked depth-2 flow as the function needs
+    """f32 operations of K4's depth-2 flow in its carried form as the function needs
     them (A0 has 3 non-zero entries per coordinate; AW, A1 and tp1 are each
     counted once, however often the kernels rebuild them), and the
     transcendental calls beside them."""
@@ -379,13 +384,30 @@ def load_n57():
     return L, flow, x
 
 
+def k4_device_kernels(cases):
+    """The CUDA kernels that one K4 call on each ``(flow, x)`` of ``cases``
+    launches, by name and count, from ``torch.profiler``'s device events.
+    One profiling session for all of them: with torch 2.11 on an H100 a
+    second session in the same process recorded no device events."""
+    from coulombgas_tpu_torch.utils.profiling import trace
+
+    torch.cuda.synchronize()
+    with torch.no_grad(), trace(None, "cuda") as prof:
+        for flow, x in cases:
+            cuda_flow_large.flow_u_jac_large_cuda(flow, x)
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def kernels_large(flow29, x29, u1, J1):
     """K4 at the n = 57 production shape (trained weights, thermalised
     walkers) and at the main path's n = 29 shape; ``u1, J1`` are the
-    carried-state kernel's results on ``x29``."""
+    carried-state kernel's results on ``x29``.  At both shapes K4 is timed
+    back to back in turns with K1 and K5 on the same walkers (K1, K5, K4,
+    K4, K5, K1), and one call is profiled: it must be one kernel launch."""
     lg = cuda_flow_large
     L57, flow57, x57 = load_n57()
-    errs, ms = {}, {}
+    errs, turns = {}, {}
     for tag, flow, x, ref1 in (("n57", flow57, x57, None), ("n29", flow29, x29, (u1, J1))):
         flow64 = init_ferminet_params(flow.cfg, DIM, None, torch.float64, DEV)
         flow64.load_state_dict({k: v.double() for k, v in flow.state_dict().items()})
@@ -406,11 +428,25 @@ def kernels_large(flow29, x29, u1, J1):
         check(torch.equal(ur, u[:-1]) and torch.equal(Jr, J[:-1]),
               "flow_u_jac_large (%s): ragged batch differs" % tag)
         errs[tag] = e
+        fns = {"flow_u_jac": cuda_flow_jac.flow_u_jac_cuda,
+               "flow_u_jac_d2": cuda_flow_d2.flow_u_jac_d2_cuda,
+               "flow_u_jac_large": lg.flow_u_jac_large_cuda}
+        t = {k: [] for name in fns for k in (name, name + "_b2b")}
         with torch.no_grad():
-            ms[tag] = time_ms(lambda: lg.flow_u_jac_large_cuda(flow, x), 20)
+            for name in ("flow_u_jac", "flow_u_jac_d2", "flow_u_jac_large", "flow_u_jac_large",
+                         "flow_u_jac_d2", "flow_u_jac"):
+                t[name].append(time_ms(lambda: fns[name](flow, x), 20))
+                t[name + "_b2b"].append(time_ms_b2b(lambda: fns[name](flow, x), 20))
             if tag == "n57":
-                ms["flow_u_jac_n57"] = time_ms(lambda: cuda_flow_jac.flow_u_jac_cuda(flow, x), 20)
-                ms["plain"] = time_ms(lambda: lg.flow_u_jac_large_ref(flow, x), 5)
+                plain_ms = time_ms(lambda: lg.flow_u_jac_large_ref(flow, x), 5)
+        turns[tag] = {k: statistics.mean(v) for k, v in t.items()}
+        turns[tag]["turns"] = t
+    # one call is one launch of K4's kernel and nothing else on the card:
+    # a call at each shape, two launches (one instantiation each)
+    device_kernels = k4_device_kernels([(flow57, x57), (flow29, x29)])
+    check(sum(device_kernels.values()) == 2
+          and all("cg_flow_large_kernel" in k for k in device_kernels),
+          "flow_u_jac_large: a call at n 57 and one at n 29 launched %s" % device_kernels)
     # dim 3, uneven widths, coincident particles
     for dim, S, T, n, B in [(3, 16, 16, 8, 65), (2, 8, 12, 13, 33)]:
         Lg = float(n) ** (1 / dim)
@@ -424,13 +460,15 @@ def kernels_large(flow29, x29, u1, J1):
         e = [max_err(a, b) for a, b in zip(got, ref)]
         check(all(bool(torch.isfinite(a).all()) for a in got) and e[0] <= TOL_U and e[1] <= TOL_UJ,
               "flow_u_jac_large (n %d, dim %d, widths %d/%d) vs plain: %s" % (n, dim, S, T, e))
-    # the shared-memory budget, as the built library states it
+    # the budget, as the built library states it: n <= 64 (two pairs a lane)
     check(lg.flow_large_fits(N57, DIM, SPSIZE, TPSIZE) and lg.flow_large_fits(N, DIM, SPSIZE, TPSIZE)
+          and lg.flow_large_fits(64, DIM, SPSIZE, TPSIZE)
           and lg.flow_large_smem_bytes(N57, DIM, SPSIZE, TPSIZE)
           > lg.flow_large_smem_bytes(N, DIM, SPSIZE, TPSIZE)
+          and not lg.flow_large_fits(65, DIM, SPSIZE, TPSIZE)
           and not lg.flow_large_fits(2000, DIM, SPSIZE, TPSIZE)
           and not lg.flow_large_fits(N, 4, SPSIZE, TPSIZE),
-          "flow_u_jac_large: shared-memory budget")
+          "flow_u_jac_large: size budget")
     try:  # a requested kernel launches or raises: depth 3 is refused
         lg.flow_u_jac_large_cuda(init_ferminet_params(
             FermiNetConfig(3, SPSIZE, TPSIZE, L57), DIM, None, torch.float32, DEV), x57[:4])
@@ -442,6 +480,7 @@ def kernels_large(flow29, x29, u1, J1):
     nbytes = 4 * (2 * BATCH57 * nd + BATCH57 * nd * nd + nparams)
     flops, trans = large_flops(BATCH57, N57, DIM, SPSIZE, TPSIZE)
     t_b, t_o = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    flops29, _ = large_flops(BATCH, N, DIM, SPSIZE, TPSIZE)
     return {
         "name": "flow_u_jac_large", "route": "cuda",
         "source": "coulombgas_tpu_torch/csrc/flow_large.cu",
@@ -451,10 +490,17 @@ def kernels_large(flow29, x29, u1, J1):
         "max_abs_err": max(errs["n57"]["f32"]), "max_abs_err_f64": max(errs["n57"]["f64"]),
         "abs_err_vs_flow_u_jac": max(errs["n57"]["flow_u_jac"]),
         "errors_u_J": errs,  # u reaches L = 13.4 at n 57: its f32 ulp is 1e-6
-        "tolerance": TOL_U, "ms": ms["n57"], "plain_ms": ms["plain"],
+        "tolerance": TOL_U, "ms": turns["n57"]["flow_u_jac_large"], "plain_ms": plain_ms,
+        "ms_b2b": turns["n57"]["flow_u_jac_large_b2b"],
         "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
         "library_ms": None, "f32_operations": flops, "transcendentals": trans, "bytes": nbytes,
-        "flow_u_jac_ms_same_shape": ms["flow_u_jac_n57"], "ms_n29_b2048": ms["n29"],
+        "flow_u_jac_ms_same_shape": turns["n57"]["flow_u_jac"],
+        "ms_n29_b2048": turns["n29"]["flow_u_jac_large"],
+        "ms_b2b_n29_b2048": turns["n29"]["flow_u_jac_large_b2b"],
+        "bound_ms_n29_b2048": flops29 / PEAK_F32_FLOPS * 1e3,
+        "with_K1_K5_mean_and_turns": turns, "device_kernels_of_two_calls": device_kernels,
+        "smem_bytes": {"n57": lg.flow_large_smem_bytes(N57, DIM, SPSIZE, TPSIZE),
+                       "n29": lg.flow_large_smem_bytes(N, DIM, SPSIZE, TPSIZE)},
     }
 
 
@@ -710,7 +756,7 @@ def phase_kernels():
     # ---- K5 / K6 flow_u_jac_d2, flow_u_jac_lap_d2: the depth-2 closure ---------
     rows += kernels_d2(L, cfg, flow, flow64, x, u, J)
 
-    # ---- K4 flow_u_jac_large: the row-chunked depth-2 kernels --------------------
+    # ---- K4 flow_u_jac_large: the depth-2 flow in its carried form ----------------
     rows.append(kernels_large(flow, x, u, J))
     rows[0]["ms_n57_b512"] = rows[-1]["flow_u_jac_ms_same_shape"]
     rows[0]["bound_ms_n57_b512"] = flow_flops(BATCH57, N57, DIM, DEPTH, SPSIZE, TPSIZE) / PEAK_F32_FLOPS * 1e3
@@ -1136,7 +1182,7 @@ def phase_train_sr():
 def phase_train_n57():
     """The n = 57 production recipe through main_torch.py's own functions,
     resumed from a copy of the checked-in epoch-100 checkpoint, then one
-    sample step on the row-chunked flow kernels."""
+    sample step on K4, the depth-2 flow in its carried form."""
     import main_torch
 
     epochs, acc_steps = 2, 2
@@ -1175,7 +1221,7 @@ def phase_train_n57():
           "tripwire_reverts": run["reverted"], "trust_scale": run["trust_scale"],
           "cuts": {"acc_steps": [16, acc_steps], "epochs": epochs}, "launches": counts})
 
-    # one sample step with the row-chunked kernels behind the Metropolis logp
+    # one sample step with K4 behind the Metropolis logp
     tr = run["trainer"]
     logp4 = make_logp_fast(tr.sp_indices, tr.L, use_large_flow=True)
     sample4 = main_torch.make_sample_step(tr.sampler, logp4, args.mc_steps, args.mc_stddev,
@@ -1191,7 +1237,7 @@ def phase_train_n57():
     lp1 = tr.logp(x4, tr.flow, si)
     e_max, e_p99 = max_err(lp4, lp1), p99_err(lp4, lp1)
     check(bool(torch.isfinite(lp4).all()) and e_p99 <= TOL_LOGP and e_max <= TOL_LOGP_MAX,
-          "n = 57 logp, row-chunked vs carried-state route: p99 %g max %g" % (e_p99, e_max))
+          "n = 57 logp, K4 vs the default route: p99 %g max %g" % (e_p99, e_max))
     # the two routes' sample steps in turns (default, large, large, default),
     # host clock around a synchronize, on copies of the same walkers
     walls = {"default": [], "use_large_flow": []}
@@ -1326,7 +1372,7 @@ def main():
     for row in rows:
         # each kernel's count on the path that runs it: the carried-state flow
         # kernel on the Adam path, the depth-2 closure kernels on the SR path,
-        # the row-chunked kernels on the large-flow sample step
+        # K4 on the large-flow sample step
         row["launches"] = next((c[row["name"]] for c in paths.values() if c[row["name"]]), 0)
         row["launches_by_path"] = {k: c[row["name"]] for k, c in paths.items()}
         check(row["launches"] > 0, "kernel %s was not launched on a main path" % row["name"])

@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flow_pair.cuh"  // pair features (cg_fp_pair) and shuffle trees (cg_fp_tree)
+
 #define CG_D2_MAXDIM 3
 
 __host__ __device__ inline int cg_d2_up4(int v) { return (v + 3) & ~3; }
@@ -93,7 +95,7 @@ __host__ __device__ inline int cg_d2_take(int* o, int k) {
 //      each pair's U[i][l] from the tp sigmoids still in registers, summing
 //      (U[i][l] + V_l)^2 and U[i][l] over the row (U[i][i] = 0 brings V_i^2);
 //      then sq1_i = sum_l |U + V_l|^2 + T_i (T_i + 2 V_i), and lap of row i.
-// Sums over the lanes are fixed-order shuffle trees (cg_d2r_tree), sums over
+// Sums over the lanes are fixed-order shuffle trees (cg_fp_tree), sums over
 // i ascend in one thread: a walker's result does not depend on its batch.
 // tests/test_torch_flow_d2_rows.py holds a numpy model of this order.  Rows
 // of four features are read 16 bytes at a time (the zero-padded sig0, G, R,
@@ -107,8 +109,6 @@ __host__ __device__ inline int cg_d2_take(int* o, int k) {
 #define CG_D2R_MAXN 64
 #define CG_D2R_MAXW 32
 
-__host__ __device__ constexpr int cg_d2r_pow2(int v) { return v <= 1 ? 1 : 2 * cg_d2r_pow2((v + 1) / 2); }
-
 // Offsets (in floats) of the kernel's shared arrays; those of the Laplacian
 // are 0 without it.
 struct cg_d2r_layout {
@@ -116,13 +116,6 @@ struct cg_d2r_layout {
   int Lsp1, V, LB, W3p;
   int S4, SS, GS, QW, RS, scr_stride, total;
 };
-
-// A row stride (in floats) of whole 16-byte groups, an odd number of them:
-// lanes reading 16 bytes each from rows k then hit distinct bank groups.
-__host__ __device__ inline int cg_d2r_stride4(int v) {
-  v = cg_d2_up4(v);
-  return (v / 4) % 2 ? v : v + 4;
-}
 
 __host__ __device__ inline cg_d2r_layout cg_d2r_make_layout(int n, int dim, int S, int T,
                                                            bool lap) {
@@ -133,8 +126,8 @@ __host__ __device__ inline cg_d2r_layout cg_d2r_make_layout(int n, int dim, int 
   // (sig0, G, V, W3_0, W3, R, Q, Pq) are padded with zeros to S4 = S rounded
   // up to 4.
   l.S4 = cg_d2_up4(S);
-  l.SS = cg_d2r_stride4(S);        // lanes read rows k of sig0 and G
-  l.GS = cg_d2r_stride4(dim * l.S4);
+  l.SS = cg_fp_stride4(S);        // lanes read rows k of sig0 and G
+  l.GS = cg_fp_stride4(dim * l.S4);
   l.QW = cg_d2_up4(C0 * dim);
   l.RS = lap ? 64 : 32;            // a warp's row sums
   l.Pm = cg_d2_take(&o, cg_d2_up4(cg_d2_params(dim, S, T)));
@@ -167,113 +160,6 @@ __host__ __device__ inline cg_d2r_layout cg_d2r_make_layout(int n, int dim, int 
   return l;
 }
 
-// sin and cos of |t| <= pi/2: Taylor series to t^13 and t^14 (remainders
-// below 7e-10), relative accuracy kept for small t.
-__device__ inline void cg_d2r_sincos(float t, float* s, float* c) {
-  const float t2 = t * t;
-  float ps = 1.f / 6227020800.f;
-  ps = fmaf(ps, t2, -1.f / 39916800.f);
-  ps = fmaf(ps, t2, 1.f / 362880.f);
-  ps = fmaf(ps, t2, -1.f / 5040.f);
-  ps = fmaf(ps, t2, 1.f / 120.f);
-  ps = fmaf(ps, t2, -1.f / 6.f);
-  *s = fmaf(t * t2, ps, t);
-  float pc = -1.f / 87178291200.f;
-  pc = fmaf(pc, t2, 1.f / 479001600.f);
-  pc = fmaf(pc, t2, -1.f / 3628800.f);
-  pc = fmaf(pc, t2, 1.f / 40320.f);
-  pc = fmaf(pc, t2, -1.f / 720.f);
-  pc = fmaf(pc, t2, 1.f / 24.f);
-  pc = fmaf(pc, t2, -0.5f);
-  *c = fmaf(t2, pc, 1.f);
-}
-
-// The features of pair (i, j), r = x_i - x_j: e = (cos k2 r, sin k2 r, d) and
-// A0[i][j]'s entries al = -k2 sin k2 r, be = k2 cos k2 r, ga = d d / d r;
-// A0[i][i] = 0 (r_ii is identically 0).  HD: also hd = sum_a d^2 d / d r_a^2,
-// 0 at i == j, with 1 / d taken as 1 where d = 0 (coincident particles), as
-// the plain versions do.
-template <int DIM, bool HD = false>
-__device__ inline void cg_d2r_pair(const float* xs, int i, int j, float L, float invL,
-                                   float k1, float k2, float (&e)[2 * DIM + 1],
-                                   float (&al)[DIM], float (&be)[DIM], float (&ga)[DIM],
-                                   float* hd = nullptr) {
-  float s1[DIM], c1[DIM], d2 = 0.f;
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) {
-    float r = xs[i * DIM + d] - xs[j * DIM + d];
-    r = fmaf(-L, rintf(r * invL), r);
-    cg_d2r_sincos(k1 * r, &s1[d], &c1[d]);
-    d2 = fmaf(s1[d], s1[d], d2);
-  }
-  const float inv = d2 > 0.f ? rsqrtf(d2) : 0.f;
-  const float self = (i == j) ? 0.f : 1.f;
-  float hc = 0.f, hs = 0.f;
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) {
-    const float c2 = fmaf(-2.f * s1[d], s1[d], 1.f), s2 = 2.f * s1[d] * c1[d];
-    e[d] = c2;
-    e[DIM + d] = s2;
-    al[d] = -k2 * s2;  // s2 = 0 at i == j
-    be[d] = self * k2 * c2;
-    ga[d] = k1 * s1[d] * c1[d] * inv;
-    if (HD) {
-      const float sc = s1[d] * c1[d];
-      hc += c2;
-      hs = fmaf(sc, sc, hs);
-    }
-  }
-  e[2 * DIM] = d2 * inv;
-  if (HD) {
-    const float is = d2 > 0.f ? inv : 1.f;
-    *hd = self * k1 * k1 * is * (hc - hs * is * is);
-  }
-}
-
-// The warp's sum of V values a lane (V a power of two <= 32): halving rounds
-// at lane offsets 16, 8, ... (the lane with the offset's bit keeps its upper
-// half and adds the partner's upper half, the other the lower halves), then
-// butterfly rounds over the remaining offsets.  Lane L returns the sum of
-// value L >> (5 - log2 V).  Destroys v.  Written as a recursion over
-// compile-time halves so that every index of v is a constant (v stays in
-// registers).
-template <int V, int H>
-__device__ __forceinline__ void cg_d2r_halve(float (&v)[V], int lane) {
-  if constexpr (H >= 1) {
-    constexpr int o = 32 * H / V;  // 16 for the first round
-    const bool hi = (lane & o) != 0;
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-      const float keep = hi ? v[j + H] : v[j];
-      const float send = hi ? v[j] : v[j + H];
-      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-    }
-    cg_d2r_halve<V, H / 2>(v, lane);
-  }
-}
-
-template <int O>
-__device__ __forceinline__ float cg_d2r_butterfly(float s) {
-  if constexpr (O >= 1) return cg_d2r_butterfly<O / 2>(s + __shfl_xor_sync(0xffffffffu, s, O));
-  return s;
-}
-
-template <int V>
-__device__ __forceinline__ float cg_d2r_tree(float (&v)[V], int lane) {
-  cg_d2r_halve<V, V / 2>(v, lane);
-  return cg_d2r_butterfly<16 / V>(v[0]);
-}
-
-// cg_d2r_tree with the sum of value v written to out[v] (out: a warp's row
-// sums; the caller orders the reads with __syncwarp).
-template <int V>
-__device__ __forceinline__ void cg_d2r_tree_to(float (&v)[V], int lane, float* out) {
-  const float sum = cg_d2r_tree<V>(v, lane);
-  if ((lane & (32 / V - 1)) == 0) out[lane / (32 / V)] = sum;
-}
-
-__device__ __forceinline__ float cg_d2r_allsum(float s) { return cg_d2r_butterfly<16>(s); }
-
 // SM, TM: compile-time caps of the widths S, T (16 or 32); EX: the widths
 // are the caps (then every loop over a width has a compile-time count); NP:
 // the pairs a lane owns in a row (1 for n <= 32, else 2); LAP: K6, with the
@@ -285,8 +171,8 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
                        int n, int S_, int T_, float L) {
   const int S = EX ? SM : S_, T = EX ? TM : T_;
   extern __shared__ __align__(16) float cg_smem[];
-  constexpr int dim = DIM, C0 = 2 * DIM + 1, V1 = cg_d2r_pow2(C0 + 3 * DIM);
-  constexpr int V1L = cg_d2r_pow2(C0 + 6 * DIM);  // K6's second row sum of phase 1
+  constexpr int dim = DIM, C0 = 2 * DIM + 1, V1 = cg_fp_pow2(C0 + 3 * DIM);
+  constexpr int V1L = cg_fp_pow2(C0 + 6 * DIM);  // K6's second row sum of phase 1
   const int nd = n * dim, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const cg_d2r_layout o = cg_d2r_make_layout(n, dim, S, T, LAP);
   const int SS = o.SS, GS = o.GS, S4 = o.S4, QW = o.QW;
@@ -384,7 +270,7 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
       const int j = lane + 32 * p;
       if (j < n) {
         float e[C0], al[DIM], be[DIM], ga[DIM], hd;
-        cg_d2r_pair<DIM, LAP>(xs, i, j, L, invL, k1, k2, e, al, be, ga, &hd);
+        cg_fp_pair<DIM, LAP>(xs, i, j, L, invL, k1, k2, e, al, be, ga, &hd);
 #pragma unroll
         for (int c = 0; c < C0; ++c) part[c] += e[c];
 #pragma unroll
@@ -412,8 +298,8 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
         }
       }
     }
-    cg_d2r_tree_to<V1>(part, lane, rs);
-    if constexpr (LAP) cg_d2r_tree_to<V1L>(partL, lane, rsL);
+    cg_fp_tree_to<V1>(part, lane, rs);
+    if constexpr (LAP) cg_fp_tree_to<V1L>(partL, lane, rsL);
     __syncwarp();
     for (int s = lane; s < S; s += 32) {
       float pre = b0[s];
@@ -477,7 +363,7 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
       const int k = lane + 32 * p;
       if (k < n && k != l) {
         float e[C0], al[DIM], be[DIM], ga[DIM];
-        cg_d2r_pair<DIM>(xs, l, k, L, invL, k1, k2, e, al, be, ga);
+        cg_fp_pair<DIM>(xs, l, k, L, invL, k1, k2, e, al, be, ga);
 #pragma unroll
         for (int s0 = 0; s0 < SM; s0 += 4)
           if (s0 < S) {  // four features at a time; the pads are zero
@@ -497,7 +383,7 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
     }
 #pragma unroll
     for (int d = 0; d < DIM; ++d) {
-      const float g = cg_d2r_tree<SM>(acc[d], lane);
+      const float g = cg_fp_tree<SM>(acc[d], lane);
       const int s = lane / (32 / SM);
       if ((lane & (32 / SM - 1)) == 0 && s < S)
         G[l * GS + d * S4 + s] = Dm[(l * dim + d) * S + s] - g * inv_n;
@@ -529,7 +415,7 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
       for (int c = 0; c < TM; ++c) sigt[p][c] = 0.f;
       if (l < n) {
         float e[C0], hd, ltp[C0];
-        cg_d2r_pair<DIM, LAP>(xs, i, l, L, invL, k1, k2, e, al[p], be[p], ga[p], &hd);
+        cg_fp_pair<DIM, LAP>(xs, i, l, L, invL, k1, k2, e, al[p], be[p], ga[p], &hd);
         if constexpr (LAP) {  // the pair's Laplacian of tp0, zero at l == i
           const float m2k = l == i ? 0.f : -2.f * k2 * k2;
 #pragma unroll
@@ -567,8 +453,8 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
         for (int d = 0; d < DIM; ++d) al[p][d] = be[p][d] = ga[p][d] = 0.f;
       }
     }
-    cg_d2r_tree_to<TM>(part, lane, rs);  // sum_j tp1[i][j]
-    if constexpr (LAP) cg_d2r_tree_to<TM>(partL, lane, rsL);  // sum_j Ltp1[i][j]
+    cg_fp_tree_to<TM>(part, lane, rs);  // sum_j tp1[i][j]
+    if constexpr (LAP) cg_fp_tree_to<TM>(partL, lane, rsL);  // sum_j Ltp1[i][j]
     __syncwarp();
     // the final sp layer of row i, and u; with the Laplacian lane s2 keeps
     // Lsp1 + sig1 (Lf W1f) and sig1 (1 - sig1) of feature s2 (S <= 32)
@@ -595,7 +481,7 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
     }
 #pragma unroll
     for (int b = 0; b < DIM; ++b) {
-      const float tot = cg_d2r_allsum(ub[b]);
+      const float tot = cg_fp_allsum(ub[b]);
       if (lane == 0) u[w * nd + i * dim + b] = xs[i * dim + b] + bf[b] + tot;
     }
     __syncwarp();
@@ -707,7 +593,7 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
 #pragma unroll
     for (int a = 0; a < DIM; ++a)
 #pragma unroll
-      for (int b = 0; b < DIM; ++b) a1s[a][b] = cg_d2r_allsum(a1s[a][b]);
+      for (int b = 0; b < DIM; ++b) a1s[a][b] = cg_fp_allsum(a1s[a][b]);
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
       const int l = lane + 32 * p;
@@ -796,17 +682,17 @@ cg_flow_d2_rows_kernel(const float* __restrict__ x, const float* __restrict__ pa
       }
       // lane s2 takes feature s2 of each sum over the lanes; T_i = -sum_l U[i][l]
       const int from = (lane & (SM - 1)) * (32 / SM);
-      float sq1 = __shfl_sync(0xffffffffu, cg_d2r_tree<SM>(q, lane), from);
+      float sq1 = __shfl_sync(0xffffffffu, cg_fp_tree<SM>(q, lane), from);
 #pragma unroll
       for (int d = 0; d < DIM; ++d) {
-        const float Td = -__shfl_sync(0xffffffffu, cg_d2r_tree<SM>(us[d], lane), from);
+        const float Td = -__shfl_sync(0xffffffffu, cg_fp_tree<SM>(us[d], lane), from);
         const float vi = lane < S ? Vm[i * GS + d * S4 + lane] : 0.f;
         sq1 += Td * (Td + 2.f * vi);
       }
       const float fin = keepL + keepG * sq1;  // 0 on lanes >= S
 #pragma unroll
       for (int b = 0; b < DIM; ++b) {
-        const float tot = cg_d2r_allsum(lane < S ? fin * wf[lane * dim + b] : 0.f);
+        const float tot = cg_fp_allsum(lane < S ? fin * wf[lane * dim + b] : 0.f);
         if (lane == 0) lap[w * nd + i * dim + b] = tot;
       }
     }

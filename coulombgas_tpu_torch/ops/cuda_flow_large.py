@@ -1,14 +1,15 @@
-"""Row-chunked depth-2 flow forward + Jacobian on the GPU — hand-written CUDA.
+"""Depth-2 flow forward + Jacobian in its carried form on the GPU — hand-written CUDA.
 
-Counterpart of ``coulombgas_tpu/ops/pallas_flow_jac.py:flow_u_jac_pallas_large``.
-Two kernels (``csrc/flow_large.cu``) split the flow by particle rows: the
-first writes the layer-0 single-particle stream ``sp1 (B, n, S)`` and its
-Jacobian ``Jsp1 (B, n, n, dim, S)``; the rows couple only through
-``mean_i sp1`` and ``mean_i Jsp1``, which are reduced between the launches
-(``torch.mean``, as the JAX package reduces them outside its kernels); the
-second rebuilds the pair-local layer-1 two-particle stream from x and writes
-u and J.  Depth 2 only.  Used by the Metropolis logp only; no gradient runs
-through it, and an input that requires grad is refused.
+Counterpart of ``coulombgas_tpu/ops/pallas_flow_jac.py:flow_u_jac_pallas_large``
+(K4).  One launch of ``csrc/flow_large.cu`` per call: a block per walker
+whose warps take the particle rows, the two means over rows that couple them
+(``mean_i sp1`` and ``mean_i Jsp1``) reduced in shared memory between the
+block's phases, and layer 0's Jacobian ``Jsp1`` rebuilt per pair in
+registers from the pair features where layer 1 uses it, so that nothing but
+x, the weights, u and J touches device memory.  The kernel reads the flow's
+weights from their own tensors (f32, contiguous, on x's device).  Depth 2
+only, n <= 64.  Used by the Metropolis logp only; no gradient runs through
+it, and an input that requires grad is refused.
 
 Layout is batch-first: x ``(B, n, dim)`` -> u ``(B, n, dim)``,
 J ``(B, nd, nd)`` with rows (i, b) and columns (l, a), identity included —
@@ -24,13 +25,11 @@ import torch
 from ..models.ferminet import FermiNet, softplus
 from ..models.ferminet_jac import _assemble_jac, _pair_feature_grads
 from ._build import SMEM_LIMIT_BYTES, check_launch, load_library
-from .cuda_flow_jac import pack_flow_params
 
 __all__ = ["flow_u_jac_large_cuda", "flow_u_jac_large_ref", "flow_large_fits",
            "flow_large_smem_bytes", "launches"]
 
-# Number of wrapper calls that launched the kernels (each call launches the
-# layer-0 kernel and the final-layer kernel once).
+# Number of wrapper calls that launched the kernel (one launch a call).
 launches = 0
 
 
@@ -41,9 +40,9 @@ def _check_depth(flow: FermiNet):
 
 
 def flow_u_jac_large_ref(flow: FermiNet, x):
-    """Plain PyTorch version of the kernels, in their two stages: layer 0 of
-    every row, the two means over rows, then layer 1 and the head.  Same
-    arguments and result as ``flow_u_jac_large_cuda``."""
+    """Plain PyTorch version of the kernel, in the TPU kernels' two stages:
+    layer 0 of every row, the two means over rows, then layer 1 and the
+    head.  Same arguments and result as ``flow_u_jac_large_cuda``."""
     _check_depth(flow)
     n, dim = x.shape[-2:]
     S = flow.cfg.spsize
@@ -78,40 +77,50 @@ def flow_u_jac_large_ref(flow: FermiNet, x):
 
 def _lib():
     lib = load_library("flow_large")
-    lib.cg_flow_large_layer0.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    lib.cg_flow_large.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
-    lib.cg_flow_large_layer0.restype = ctypes.c_int
-    lib.cg_flow_large_final.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
-    lib.cg_flow_large_final.restype = ctypes.c_int
+    lib.cg_flow_large.restype = ctypes.c_int
     lib.cg_flow_large_smem.argtypes = [ctypes.c_int] * 4
-    lib.cg_flow_large_param_count.argtypes = [ctypes.c_int] * 3
     return lib
 
 
 def flow_large_smem_bytes(n: int, dim: int, S: int, C2: int) -> int:
-    """Shared memory of one block as the built library states it, the larger
-    of the two kernels' needs; -1 where dim is beyond the kernels (dim > 3)."""
+    """Shared memory of one block as the built library states it; -1 where
+    the size is beyond the kernel (n > 64, dim > 3, a width > 32)."""
     return _lib().cg_flow_large_smem(n, dim, S, C2)
 
 
 def flow_large_fits(n: int, dim: int, S: int, C2: int, device=None) -> bool:
     """Whether the wrapper takes this size on ``device`` (default: CUDA).
-    The kernels take dim <= 3, and their n ceiling is shared memory, which
-    grows as n (the per-row state of the second kernel, about 4 (dim S +
-    dim C2 + ...) floats a particle; 40 KB at n = 57, dim 2, widths 16);
-    this asks the built library, so it needs ``nvcc``.  On a CPU device the
+    The kernel takes n <= 64 (a lane owns at most two pairs of a row),
+    dim <= 3 and widths <= 32; its shared memory grows as n (about
+    (3 + 3 dim) S floats a particle, 36 KB at n = 57, dim 2, widths 16).
+    This asks the built library, so it needs ``nvcc``.  On a CPU device the
     wrapper takes its plain version, which takes any size."""
     if device is not None and torch.device(device).type == "cpu":
         return True
     return 0 <= flow_large_smem_bytes(n, dim, S, C2) <= SMEM_LIMIT_BYTES
 
 
+def _weights(flow: FermiNet, x):
+    """The eight weight tensors in the kernel's order, as the kernel reads
+    them: f32, contiguous, on x's device."""
+    ws = []
+    for lin in (flow.sp[0], flow.sp[1], flow.tp[0], flow.final):
+        ws += [lin.w, lin.b]
+    for w in ws:
+        if w.dtype != torch.float32 or not w.is_contiguous() or w.device != x.device:
+            raise ValueError("the kernel reads the flow's weights in place: they must be "
+                             "contiguous float32 on x's device, got %s %s on %s" % (
+                                 w.dtype, tuple(w.stride()), w.device))
+    return ws
+
+
 def flow_u_jac_large_cuda(flow: FermiNet, x):
     """u (B, n, dim) and J (B, nd, nd) of a depth-2 flow for walkers x (B, n, dim).
 
-    A CUDA tensor must be f32 and is handled by the kernels (or this raises);
-    a CPU tensor goes through the plain version.
+    A CUDA tensor must be f32 and is handled by the kernel in one launch (or
+    this raises); a CPU tensor goes through the plain version.
     """
     global launches
     if x.ndim != 3:
@@ -132,33 +141,18 @@ def flow_u_jac_large_cuda(flow: FermiNet, x):
         raise ValueError("flow built for dim %d, x has dim %d" % (flow.dim, dim))
     if not flow_large_fits(n, dim, S, T):
         raise ValueError(
-            "n = %d, dim = %d, spsize = %d, tpsize = %d is beyond the row-chunked flow "
-            "kernel (shared memory %d of %d bytes; -1: dim > 3)" % (
+            "n = %d, dim = %d, spsize = %d, tpsize = %d is beyond the flow kernel K4 "
+            "(n <= 64, dim <= 3, widths <= 32; shared memory %d of %d bytes, -1: beyond)" % (
                 n, dim, S, T, flow_large_smem_bytes(n, dim, S, T), SMEM_LIMIT_BYTES))
-    params = pack_flow_params(flow)
-    if params.device != x.device:
-        raise ValueError("flow parameters and x must lie on one device")
-    lib = _lib()
-    assert params.numel() == lib.cg_flow_large_param_count(dim, S, T)
+    ws = _weights(flow, x)
     x = x.contiguous()
     nd = n * dim
-    dev = x.device
-    sp1 = torch.empty(B, n, S, dtype=torch.float32, device=dev)
-    Jsp1 = torch.empty(B, n, n, dim, S, dtype=torch.float32, device=dev)
-    u = torch.empty(B, n, dim, dtype=torch.float32, device=dev)
-    J = torch.empty(B, nd, nd, dtype=torch.float32, device=dev)
-    tail = (B, n, dim, S, T, float(cfg.L))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.cg_flow_large_layer0(x.data_ptr(), params.data_ptr(), sp1.data_ptr(),
-                                        Jsp1.data_ptr(), *tail, stream)
-        check_launch(code, "flow_u_jac_large (layer 0)")
-        # the two reductions over rows that couple the particles in layer 1
-        spmean = sp1.mean(dim=1).contiguous()
-        jmean = Jsp1.mean(dim=1).contiguous()
-        code = lib.cg_flow_large_final(x.data_ptr(), params.data_ptr(), sp1.data_ptr(),
-                                       Jsp1.data_ptr(), spmean.data_ptr(), jmean.data_ptr(),
-                                       u.data_ptr(), J.data_ptr(), *tail, stream)
-    check_launch(code, "flow_u_jac_large (final layer)")
+    u = torch.empty(B, n, dim, dtype=torch.float32, device=x.device)
+    J = torch.empty(B, nd, nd, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = _lib().cg_flow_large(x.data_ptr(), *(w.data_ptr() for w in ws), u.data_ptr(),
+                                    J.data_ptr(), B, n, dim, S, T, float(cfg.L),
+                                    torch.cuda.current_stream().cuda_stream)
+    check_launch(code, "flow_u_jac_large")
     launches += 1
     return u, J

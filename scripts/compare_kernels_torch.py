@@ -1,11 +1,12 @@
-"""Times two versions of the kernels K1, K2, K3, K5 and K6 in turns on one GPU.
+"""Times two versions of the kernels K1-K6 in turns on one GPU.
 
     python3 scripts/compare_kernels_torch.py [--other DIR [DIR ...]] [--k3_plans] [--out FILE]
 
 Each DIR holds another version's sources, any of ``flow_jac.cu`` (K1),
 ``fused_logp.cu`` with the headers it includes (K2: ``chol.cuh``,
-``chol_blocked.cuh``), ``chol_logdet.cu`` with the same headers (K3) and
-``flow_d2.cu`` (K5 and K6), for example written there by
+``chol_blocked.cuh``), ``chol_logdet.cu`` with the same headers (K3),
+``flow_large.cu`` (K4) and ``flow_d2.cu`` (K5 and K6; both with
+``flow_pair.cuh`` where they include it), for example written there by
 ``git show <commit>:coulombgas_tpu_torch/csrc/<file>``.  Both versions are
 built with the same ``nvcc`` flags, the package's into ``build/`` and the
 other into ``build/other<k>/``, all sources in parallel.  At the two shapes
@@ -15,7 +16,13 @@ n = 57, batch 512 on the checked-in checkpoint's weights and walkers
 this, this, other (median of 20 launches by CUDA events each), and the two
 versions' outputs on the same inputs are compared; K5's lines also time the
 package's K1 on the same walkers, K6's give its outputs' distance from the
-plain f64 closure.  K3 is compared at its own shapes (``chip_smoke.K3_SHAPES``,
+plain f64 closure.  K4's lines time the two versions and, in the same
+turns, the package's K1 and K5 on the same walkers (each of the four turns:
+K4, K1, K5), and give both K4s' distance from the plain f64 version; a K4
+with the parent's two kernels (``cg_flow_large_layer0``,
+``cg_flow_large_final``) runs as the parent's wrapper ran it, the two
+``torch.mean`` between its launches included.  Every line of K1, K4, K5
+and K6 says whether the two versions' outputs are equal bit for bit.  K3 is compared at its own shapes (``chip_smoke.K3_SHAPES``,
 random SPD matrices) in the order other, this, library, library, this, other,
 the library being ``torch.linalg.cholesky`` + log-diag; another K3 with the
 parent's launcher (A, out, B, m, stream) runs as it is, one with a launch
@@ -42,7 +49,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
 from coulombgas_tpu_torch.ops import (  # noqa: E402
-    _build, cuda_flow_d2, cuda_flow_jac, cuda_fused_logp, cuda_logdet,
+    _build, cuda_flow_d2, cuda_flow_jac, cuda_flow_large, cuda_fused_logp, cuda_logdet,
 )
 
 
@@ -53,7 +60,7 @@ def build_other(src_dir: str, tag: str = "other", rebuild_this: bool = True) -> 
     ptxas lines of both."""
     out_dir = os.path.join(_build.BUILD_DIR, tag)
     os.makedirs(out_dir, exist_ok=True)
-    names = [nm for nm in ("flow_jac", "fused_logp", "flow_d2", "chol_logdet")
+    names = [nm for nm in ("flow_jac", "fused_logp", "flow_d2", "chol_logdet", "flow_large")
              if os.path.isfile(os.path.join(src_dir, nm + ".cu"))]
     procs = {}
     for name in names:
@@ -87,6 +94,19 @@ def build_other(src_dir: str, tag: str = "other", rebuild_this: bool = True) -> 
         fns["d2lap"] = libs["flow_d2"].cg_flow_d2_u_jac_lap
         fns["d2lap"].argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_void_p]
+    if "flow_large" in libs:
+        lib = libs["flow_large"]
+        if hasattr(lib, "cg_flow_large"):  # one launch: (x, 8 weights, u, J, ints, L, stream)
+            fns["large"] = lib.cg_flow_large
+            fns["large"].argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_void_p]
+        else:  # the parent's two kernels, packed weights
+            fns["large0"] = lib.cg_flow_large_layer0
+            fns["large0"].argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_void_p]
+            fns["large1"] = lib.cg_flow_large_final
+            fns["large1"].argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_void_p]
     if "chol_logdet" in libs:
         lib = libs["chol_logdet"]
         fns["k3"] = lib.cg_chol_logdet
@@ -98,7 +118,7 @@ def build_other(src_dir: str, tag: str = "other", rebuild_this: bool = True) -> 
             fns["k3_smem"].restype = ctypes.c_int
         else:  # the parent's: (A, out, B, m, stream)
             fns["k3"].argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    for key in ("flow", "fused", "d2", "d2lap", "k3"):
+    for key in ("flow", "fused", "d2", "d2lap", "k3", "large", "large0", "large1"):
         if key in fns:
             fns[key].restype = ctypes.c_int
     return fns
@@ -123,6 +143,62 @@ def other_flow(lib, flow, x, key="flow"):
                     torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, "other " + key)
     return (u, J, lap) if key == "d2lap" else (u, J)
+
+
+def other_large(lib, flow, x):
+    """The other K4 on x: one launch, or the parent's two kernels with the
+    two means over rows between them, as its wrapper ran them."""
+    B, n, dim = x.shape
+    cfg = flow.cfg
+    S, T = cfg.spsize, cfg.tpsize
+    u = torch.empty_like(x)
+    J = torch.empty(B, n * dim, n * dim, device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    tail = (B, n, dim, S, T, float(cfg.L), stream)
+    if "large" in lib:
+        ws = [t for lin in (flow.sp[0], flow.sp[1], flow.tp[0], flow.final) for t in (lin.w, lin.b)]
+        code = lib["large"](x.data_ptr(), *(w.data_ptr() for w in ws), u.data_ptr(), J.data_ptr(),
+                            *tail)
+        _build.check_launch(code, "other flow_large")
+        return u, J
+    params = cuda_flow_jac.pack_flow_params(flow)
+    sp1 = torch.empty(B, n, S, device=x.device)
+    Jsp1 = torch.empty(B, n, n, dim, S, device=x.device)
+    code = lib["large0"](x.data_ptr(), params.data_ptr(), sp1.data_ptr(), Jsp1.data_ptr(), *tail)
+    _build.check_launch(code, "other flow_large (layer 0)")
+    spmean = sp1.mean(dim=1).contiguous()
+    jmean = Jsp1.mean(dim=1).contiguous()
+    code = lib["large1"](x.data_ptr(), params.data_ptr(), sp1.data_ptr(), Jsp1.data_ptr(),
+                         spmean.data_ptr(), jmean.data_ptr(), u.data_ptr(), J.data_ptr(), *tail)
+    _build.check_launch(code, "other flow_large (final layer)")
+    return u, J
+
+
+def compare_large(lib, flow, x, tag, reps: int = 20) -> dict:
+    """K4's line at one shape: the other K4 and the package's in turns
+    (other, this, this, other), each turn also timing the package's K1 and
+    K5 on the same walkers; outputs against each other and plain f64."""
+    B, n, _ = x.shape
+    this = lambda: cuda_flow_large.flow_u_jac_large_cuda(flow, x)  # noqa: E731
+    fns = {"other": lambda: other_large(lib, flow, x), "this": this,
+           "flow_u_jac": lambda: cuda_flow_jac.flow_u_jac_cuda(flow, x),
+           "flow_u_jac_d2": lambda: cuda_flow_d2.flow_u_jac_d2_cuda(flow, x)}
+    ms = {k: [] for name in fns for k in (name, name + "_b2b")}
+    for who in ("other", "this", "this", "other"):
+        for name in (who, "flow_u_jac", "flow_u_jac_d2"):
+            ms[name].append(cs.time_ms(fns[name], reps))
+            ms[name + "_b2b"].append(cs.time_ms_b2b(fns[name], reps))
+    got, oth = this(), other_large(lib, flow, x)
+    flow64 = cs.init_ferminet_params(flow.cfg, cs.DIM, None, torch.float64, x.device)
+    flow64.load_state_dict({k: v.double() for k, v in flow.state_dict().items()})
+    ref = cuda_flow_large.flow_u_jac_large_ref(flow64, x.double())
+    flops, _ = cs.large_flops(B, n, cs.DIM, cs.SPSIZE, cs.TPSIZE)
+    return {"shape": tag, "kernel": "flow_u_jac_large", "ms": ms,
+            "bit_equal": all(torch.equal(a, b) for a, b in zip(got, oth)),
+            "u_J_max_abs_diff": [cs.max_err(a, b) for a, b in zip(got, oth)],
+            "this_vs_plain_f64_u_J": [cs.max_err(a, b) for a, b in zip(got, ref)],
+            "other_vs_plain_f64_u_J": [cs.max_err(a, b) for a, b in zip(oth, ref)],
+            "bound_ms": flops / cs.PEAK_F32_FLOPS * 1e3}
 
 
 def other_fused(lib, u, kvec, J, L):
@@ -236,6 +312,7 @@ def compare(lib, case29, case57) -> list:
                     "ms": turns(lambda: other_flow(lib, flow, x),
                                 lambda: cuda_flow_jac.flow_u_jac_cuda(flow, x)),
                     "u_max_abs_diff": cs.max_err(u, uo), "J_max_abs_diff": cs.max_err(J, Jo),
+                    "bit_equal": bool(torch.equal(u, uo) and torch.equal(J, Jo)),
                     "bound_ms": cs.flow_flops(B, n, cs.DIM, cs.DEPTH, cs.SPSIZE, cs.TPSIZE)
                     / cs.PEAK_F32_FLOPS * 1e3})
             if "d2" in lib:
@@ -249,6 +326,7 @@ def compare(lib, case29, case57) -> list:
                     "flow_u_jac_ms_b2b": cs.time_ms_b2b(
                         lambda: cuda_flow_jac.flow_u_jac_cuda(flow, x), 20),
                     "u_max_abs_diff": cs.max_err(u5, uo), "J_max_abs_diff": cs.max_err(J5, Jo),
+                    "bit_equal": bool(torch.equal(u5, uo) and torch.equal(J5, Jo)),
                     "vs_flow_u_jac_u_J": [cs.max_err(u5, u), cs.max_err(J5, J)],
                     "bound_ms": cs.d2_flops(B, n, cs.DIM, cs.SPSIZE, cs.TPSIZE, False)[0]
                     / cs.PEAK_F32_FLOPS * 1e3})
@@ -262,10 +340,13 @@ def compare(lib, case29, case57) -> list:
                     "ms": turns(lambda: other_flow(lib, flow, x, "d2lap"),
                                 lambda: cuda_flow_d2.flow_u_jac_lap_d2_cuda(flow, x)),
                     "u_J_lap_max_abs_diff": [cs.max_err(a, b) for a, b in zip(got, oth)],
+                    "bit_equal": all(torch.equal(a, b) for a, b in zip(got, oth)),
                     "this_vs_plain_f64_u_J_lap": [cs.max_err(a, b) for a, b in zip(got, ref)],
                     "other_vs_plain_f64_u_J_lap": [cs.max_err(a, b) for a, b in zip(oth, ref)],
                     "bound_ms": cs.d2_flops(B, n, cs.DIM, cs.SPSIZE, cs.TPSIZE, True)[0]
                     / cs.PEAK_F32_FLOPS * 1e3})
+            if "large" in lib or "large0" in lib:
+                lines.append(compare_large(lib, flow, x, tag))
             if "fused" in lib:
                 lp = cuda_fused_logp.fused_logp_cuda(u, kvec, J, L)
                 lpo = other_fused(lib, u, kvec, J, L)
@@ -293,7 +374,8 @@ def main():
         ap.error("nothing to do: give --other DIR and/or --k3_plans")
     smi = cs.smi_line()
     libs = [build_other(d, "other%d" % k, k == 0) for k, d in enumerate(args.other)]
-    if any(key in lib for lib in libs for key in ("flow", "fused", "d2")):
+    flow_keys = ("flow", "fused", "d2", "large", "large0")
+    if any(key in lib for lib in libs for key in flow_keys):
         L29, _, flow29, x29, kvec29, _, _ = cs.make_inputs()
         L57, flow57, x57 = cs.load_n57()
         kvec57 = cs.n57_kvec()
@@ -301,7 +383,7 @@ def main():
     for other, lib in zip(args.other, libs):
         lines.append({"nvidia_smi": smi, "other": other, "ptxas_other": lib["ptxas"],
                       "ptxas_this": lib["ptxas_this"]})
-        if any(key in lib for key in ("flow", "fused", "d2")):
+        if any(key in lib for key in flow_keys):
             lines += compare(lib, (L29, flow29, x29, kvec29), (L57, flow57, x57, kvec57))
         if "k3" in lib:
             lines += compare_k3(lib)
