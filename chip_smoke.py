@@ -33,6 +33,18 @@ exit code:
   train    two Adam epochs through main_torch.py's own functions at the
            default width, with the launch counters read around them, then one
            sample step on the route that uses the third kernel;
+  train_default main.py's default command line (no --hutchinson: the exact
+           Laplacian of log|det J|) for two Adam epochs at the same width,
+           with its launch counters, seconds by phase and peak memory;
+  engines  on 64 of those walkers, every exact engine (the analytic one in
+           batched passes and column by column, the generic-AD one of
+           --laplacian ad both ways, and the analytic one without an analytic
+           flow Jacobian, as --slow_logp runs it) in f64 and in f32 against
+           the analytic batched engine in f64; then one epoch at batch 256 of
+           each of --laplacian ad, --laplacian ad --hutchinson, --slow_logp,
+           --forloop_laplacian, --sr --sr_solver host64 --mc_d2_kernel
+           --acc_d2_kernel (exact) and --sr --slow_logp, each with its
+           launch counters;
   train_sr three epochs of stochastic reconfiguration (--sr --sr_solver host64
            --mc_d2_kernel --acc_d2_kernel) at the same width, counters set to
            zero before and read after, then the plain solver's step on the
@@ -124,6 +136,14 @@ TOL_LOGP_MAX = 5e-2
 # times tighter than the bound the reference's own tests give its TPU kernel
 # in interpret mode (2e-4).
 TOL_LAP = 1e-5
+# The exact engines against the analytic batched engine in f64, each error
+# taken relative to the largest |value| over the walkers.  f64: the same sums
+# in another order, 1e-8.  f32: the Slater part inverts D by LU
+# in f32, 1.2e-7 times cond(D) (a few hundred on thermalised n = 29 walkers)
+# is 1e-5 to 1e-4 of each walker's Hessian terms, which the Laplacian sums
+# with some cancellation; ten times that.
+TOL_ENGINE_F64 = 1e-8
+TOL_ENGINE_F32 = 1e-3
 
 
 def emit(obj):
@@ -1036,9 +1056,11 @@ def phase_train():
         ])
         check((args.n, args.dim, args.Emax, args.batch, args.mc_steps) == (N, DIM, EMAX, BATCH, 50),
               "main_torch defaults are not the main path's width")
+        torch.cuda.reset_peak_memory_stats()
         reset_counts()
         run = main_torch.train(args, out_folder=out)
         counts = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for row in run["epochs"]:
         emit(dict({"phase": "train"}, **row))
         vals = [row[k] for k in ("F", "E", "K", "V", "S", "accept_rate")]
@@ -1074,8 +1096,157 @@ def phase_train():
     check(bool(torch.isfinite(x3).all()) and x3.shape == x0.shape, "walkers of the third route")
     emit({"phase": "train", "route": "chol_logdet", "accept_rate": float(acc3),
           "logp_max_abs_diff_vs_fused": err, "launches_on_this_route": route3,
-          "launches_main_path": counts})
+          "launches_main_path": counts, "peak_GiB": round(peak_gib, 3)})
     return counts
+
+
+def phase_train_default():
+    """main.py's default command line through main_torch.py's functions: Adam
+    and the exact Laplacian (no --hutchinson) at the default width."""
+    import tempfile
+
+    import main_torch
+
+    mc_therm, epochs = 2, 2
+    with tempfile.TemporaryDirectory() as out:
+        args = main_torch.parse_args([
+            "--folder", "data/interacting/", "--mc_therm", str(mc_therm),
+            "--acc_steps", "1", "--epoch", str(epochs), "--ckpt_every", "1000000",
+        ])
+        check((args.n, args.dim, args.Emax, args.batch, args.mc_steps, args.depth, args.hutchinson,
+               args.laplacian, args.sr) == (N, DIM, EMAX, BATCH, 50, DEPTH, False, "analytic", False),
+              "main_torch defaults are not main.py's default line")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        run = main_torch.train(args, out_folder=out)
+        counts = read_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check(os.path.basename(run["trainer"].path).endswith(
+            "_mcstddev_0.10_lr_0.001_batch_2048_ndevices_1_accsteps_1"), "run directory name")
+    for row in run["epochs"]:
+        emit(dict({"phase": "train_default"}, **row))
+        vals = [row[k] for k in ("F", "E", "K", "V", "S", "accept_rate")]
+        check(all(math.isfinite(v) for v in vals), "non-finite observable in epoch %d" % row["epoch"])
+        check(0.05 < row["accept_rate"] < 0.95, "accept rate %g out of (0.05, 0.95)" % row["accept_rate"])
+    check(len(run["epochs"]) == epochs and run["params_changed"], "default line: epochs %s" % run["epochs"])
+    expect = 51 * (mc_therm + epochs)
+    # the accumulate takes log det(J J^T) from chol_logdet twice, as the
+    # Hutchinson line does: the exact term's primal (its Hessian columns are
+    # reverse passes over the closed-form rules, no further value) and log Psi
+    check(counts["flow_u_jac"] == expect and counts["fused_logp"] == expect
+          and counts["chol_logdet"] == 2 * epochs
+          and counts["flow_u_jac_d2"] == 0 and counts["flow_u_jac_lap_d2"] == 0,
+          "default line launch counters %s, expected %d for flow_u_jac and fused_logp and %d "
+          "for chol_logdet" % (counts, expect, 2 * epochs))
+    emit({"phase": "train_default", "s_per_epoch_by_phase": {
+        k: [r[k + "_s"] for r in run["epochs"]] for k in ("sample", "accumulate", "apply")},
+        "peak_GiB": round(peak_gib, 3), "launches": counts})
+    return counts, run["trainer"]
+
+
+def phase_engines(tr, walkers: int = 64, batch: int = 256):
+    """Every exact engine on the card against the analytic batched one in
+    f64, then one epoch of each newly accepted flag set at batch 256."""
+    import copy
+    import tempfile
+
+    import main_torch
+    from coulombgas_tpu_torch.models.ferminet import ferminet_apply
+    from coulombgas_tpu_torch.models.ferminet_jac import (
+        ferminet_apply_and_jac, ferminet_apply_jac_lap,
+    )
+    from coulombgas_tpu_torch.wavefunction.fast_laplacian import (
+        make_logpsi_grad_laplacian_analytic,
+    )
+    from coulombgas_tpu_torch.wavefunction.logpsi import make_logpsi_fast, make_logpsi_grad_laplacian
+
+    si, x, _ = tr.sample_step(tr.van, tr.flow, tr.x, tr.generator)
+    si, x = si[:walkers], x[:walkers]
+    sp, L = tr.sp_indices, tr.L
+
+    def analytic(**kw):
+        return make_logpsi_grad_laplacian_analytic(sp, L, ferminet_apply_jac_lap, hutchinson=False,
+                                                   flow_jac=ferminet_apply_and_jac, **kw)
+
+    logpsi = make_logpsi_fast(ferminet_apply_and_jac, sp, L)
+    engines = {
+        "analytic": analytic(), "analytic_forloop": analytic(forloop=True),
+        "ad": make_logpsi_grad_laplacian(logpsi),
+        "ad_forloop": make_logpsi_grad_laplacian(logpsi, forloop=True),
+        "slow_logp_analytic": make_logpsi_grad_laplacian_analytic(sp, L, hutchinson=False,
+                                                                  flow_apply=ferminet_apply),
+    }
+    flow64 = copy.deepcopy(tr.flow).double()
+    res = {}
+    for prec, flow, xx in (("f64", flow64, x.double()), ("f32", tr.flow, x)):
+        for name, fn in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            g, lap = fn(xx, flow, si)
+            torch.cuda.synchronize()
+            res[prec, name] = (g.to(torch.complex128), lap.to(torch.complex128), time.time() - t0)
+    ref_g, ref_lap, _ = res["f64", "analytic"]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    errors = {}
+    for (prec, name), (g, lap, secs) in res.items():
+        e = {"grad": rel(g, ref_g), "laplacian": rel(lap, ref_lap), "s": secs,
+             "finite": bool(torch.isfinite(torch.view_as_real(lap)).all()
+                            and torch.isfinite(torch.view_as_real(g)).all())}
+        errors[prec + " " + name] = e
+        tol = TOL_ENGINE_F64 if prec == "f64" else TOL_ENGINE_F32
+        check(e["finite"] and e["grad"] <= tol and e["laplacian"] <= tol,
+              "engine %s %s against the analytic batched engine in f64: %s (tolerance %g)"
+              % (prec, name, e, tol))
+    emit({"phase": "engines", "walkers": walkers, "reference": "analytic batched, f64",
+          "relative_to": "largest |value| over the walkers",
+          "tolerance_f64_f32": [TOL_ENGINE_F64, TOL_ENGINE_F32],
+          "max_abs_laplacian": float(ref_lap.abs().max()), "errors": errors})
+
+    lines = {
+        "laplacian_ad": ["--laplacian", "ad"],
+        "laplacian_ad_hutchinson": ["--laplacian", "ad", "--hutchinson"],
+        "slow_logp": ["--slow_logp"],
+        "forloop_laplacian": ["--forloop_laplacian"],
+        "sr_exact_d2": ["--sr", "--sr_solver", "host64", "--mc_d2_kernel", "--acc_d2_kernel"],
+        "sr_slow_logp": ["--sr", "--slow_logp"],
+    }
+    mc_therm, epochs = 1, 1
+    sweeps = 51 * (mc_therm + epochs)
+    paths = {}
+    for name, flags in lines.items():
+        with tempfile.TemporaryDirectory() as out:
+            args = main_torch.parse_args([
+                "--folder", "data/interacting/", "--batch", str(batch), "--mc_therm", str(mc_therm),
+                "--acc_steps", "1", "--epoch", str(epochs), "--ckpt_every", "1000000"] + flags)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.time()
+            run = main_torch.train(args, out_folder=out)
+            seconds = time.time() - t0
+            counts = read_counts()
+        check(len(run["epochs"]) == epochs, "%s: epochs %s" % (name, run["epochs"]))
+        row = run["epochs"][0]
+        vals = [row[k] for k in ("F", "E", "K", "V", "S", "accept_rate")]
+        check(all(math.isfinite(v) for v in vals), "%s: non-finite observable" % name)
+        check(0.05 < row["accept_rate"] < 0.95, "%s: accept rate %g" % (name, row["accept_rate"]))
+        want = dict.fromkeys(counts, 0)
+        if args.mc_d2_kernel:
+            want.update(flow_u_jac_d2=sweeps, fused_logp=sweeps, flow_u_jac_lap_d2=epochs,
+                        chol_logdet=2 * epochs)
+        elif not args.slow_logp:
+            # log det(J J^T) twice an accumulate, but once under the split
+            # Hutchinson engine, whose log|det J| term is jacfwd + slogdet
+            want.update(flow_u_jac=sweeps, fused_logp=sweeps,
+                        chol_logdet=(1 if args.hutchinson else 2) * epochs)
+        check(counts == want, "%s: launch counters %s, expected %s" % (name, counts, want))
+        paths[name] = counts
+        emit({"phase": "engines", "line": " ".join(flags), "batch": batch, "epoch": row,
+              "seconds": seconds, "peak_GiB": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+              "launches": counts})
+    return paths
 
 
 def check_scores(tr, si, walkers: int = 32, rows: int = 2):
@@ -1363,15 +1534,20 @@ def main():
     phase_build()
     rows = phase_kernels()
     counts = phase_train()
+    counts_default, tr_default = phase_train_default()
+    counts_engines = phase_engines(tr_default)
+    del tr_default
     counts_sr = phase_train_sr()
     counts_n57, counts_k4 = phase_train_n57()
     counts_routes = phase_routes()
     phase_pretrain()
-    paths = {"adam": counts, "sr": counts_sr, "n57": counts_n57, "n57_large_flow_step": counts_k4,
+    paths = {"default": counts_default, "adam": counts, "sr": counts_sr,
+             **{"engines_" + k: c for k, c in counts_engines.items()}, "n57": counts_n57, "n57_large_flow_step": counts_k4,
              **{"route_" + k: c for k, c in counts_routes.items()}}
     for row in rows:
         # each kernel's count on the path that runs it: the carried-state flow
-        # kernel on the Adam path, the depth-2 closure kernels on the SR path,
+        # kernel and the log-det kernels on main.py's default line (Adam, the
+        # exact Laplacian), the depth-2 closure kernels on the SR path,
         # K4 on the large-flow sample step
         row["launches"] = next((c[row["name"]] for c in paths.values() if c[row["name"]]), 0)
         row["launches_by_path"] = {k: c[row["name"]] for k, c in paths.items()}

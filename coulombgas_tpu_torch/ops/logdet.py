@@ -36,6 +36,7 @@ __all__ = [
     "chol_logdet_single",
     "logdet_spd_single",
     "gj_inverse_single",
+    "gram_inverse_single",
     "gram_logabsdet",
     "planewave_gram_embed",
 ]
@@ -98,6 +99,17 @@ def gj_inverse_single(A):
     return M
 
 
+def gram_inverse_single(D):
+    """D^-1 of square complex (or real) matrices (..., m, m) via the Gram form.
+
+    D^-1 = (D^H D)^-1 D^H with the Hermitian positive-definite Gram inverted
+    by ``gj_inverse_single``: no LU, differentiable to any order.  The
+    conditioning is squared, like that of every Gram form here.
+    """
+    Dh = D.conj().transpose(-1, -2) if D.is_complex() else D.transpose(-1, -2)
+    return gj_inverse_single(Dh @ D) @ Dh
+
+
 class _SpdInverse(torch.autograd.Function):
     """Inverse of real SPD matrices with the closed-form derivative
     d(A^-1) = -A^-1 dA A^-1 instead of AD through the m elimination steps
@@ -105,8 +117,11 @@ class _SpdInverse(torch.autograd.Function):
 
     Written with ``setup_context`` and a ``vmap`` rule so that
     ``torch.func.vmap(torch.func.jacrev(...))`` — the per-sample scores of
-    stochastic reconfiguration — can pass through it: the function takes any
-    leading batch dimensions, so the rule moves the mapped one to the front."""
+    stochastic reconfiguration — and the batched cotangents of the exact
+    Laplacian's Hessian columns (``autograd.grad(is_grads_batched=True)``, the
+    matrix itself unbatched: PyTorch then skips the rule) can pass through it:
+    the function takes any leading batch dimensions, so the rule moves the
+    mapped one to the front."""
 
     @staticmethod
     def forward(A):
@@ -129,8 +144,10 @@ class _SpdInverse(torch.autograd.Function):
 
 class _LogdetSpd(torch.autograd.Function):
     """Primal: the pivot-free Cholesky — no graph is kept of it, so on the GPU
-    it is the kernel behind ``chol_logdet``.  Derivative: A^-1 (A symmetric).
-    The ``vmap`` rule hands the kernel the physically batched tensor."""
+    it is the kernel behind ``chol_logdet``.  Derivative: A^-1 (A symmetric),
+    so that reverse-mode derivatives of any order nest over ``_SpdInverse``'s
+    closed form.  The ``vmap`` rule hands the kernel the physically batched
+    tensor."""
 
     @staticmethod
     def forward(A):
@@ -156,7 +173,8 @@ def logdet_spd_single(A):
     Value from ``chol_logdet``; the gradient is A^-1 from
     ``gj_inverse_single``, and the gradient's own derivative is the closed
     form -A^-1 dA A^-1, so the Hessian-vector products of the Hutchinson
-    Laplacian keep no per-step residuals.
+    Laplacian and the Hessian columns of the exact one keep no per-step
+    residuals.
     """
     return _LogdetSpd.apply(A)
 
@@ -166,13 +184,15 @@ def chol_logdet(A):
 
     A CUDA tensor goes to the hand-written kernel (``ops/cuda_logdet.py``),
     which raises if it cannot run; a CPU tensor goes to ``chol_logdet_ref``.
-    An m past the kernel's limit, ``K3_MAX_M`` (``chol_logdet_fits``), takes
-    ``chol_logdet_ref`` on the tensor's own device, as the JAX package's
-    kernel hands an m beyond its VMEM budget to its plain elimination.
+    An m past the kernel's limit, ``K3_MAX_M`` (``chol_logdet_fits``), or a
+    CUDA tensor of another dtype than float32 takes ``chol_logdet_ref`` on the
+    tensor's own device, as the JAX package's dispatcher takes its kernel for
+    f32 input within its VMEM budget only and its plain elimination otherwise.
     """
     from . import cuda_logdet
 
-    if not cuda_logdet.chol_logdet_fits(A.shape[-1], A.device):
+    f32_or_cpu = A.dtype == torch.float32 or A.device.type == "cpu"
+    if not (f32_or_cpu and cuda_logdet.chol_logdet_fits(A.shape[-1], A.device)):
         return chol_logdet_ref(A)
     return cuda_logdet.chol_logdet_cuda(A)
 

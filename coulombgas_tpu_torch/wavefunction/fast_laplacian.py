@@ -19,8 +19,11 @@ determinants).  No parameter gradient is required through this path (the loss
 differentiates log psi only; E_loc enters as a constant), so the Slater part
 is plain linear algebra, not AD.
 
-Counterpart of ``coulombgas_tpu/wavefunction/fast_laplacian.py`` for the
-``flow_jac_lap`` + Hutchinson configuration, with the batch written out.
+Counterpart of ``coulombgas_tpu/wavefunction/fast_laplacian.py``, with the
+batch written out.  The 1/2 log|det J| term is differentiated by reverse-mode
+AD (``logpsi.coordinate_derivatives``): the Hutchinson estimate, or the exact
+trace of its Hessian in batched passes over the coordinate basis or one column
+at a time.
 """
 
 from __future__ import annotations
@@ -31,40 +34,86 @@ import torch
 from ..config import complex_dtype
 from ..models.slater import planewave_matrix
 from ..ops.logdet import logdet_spd_single
+from .logpsi import columns_per_pass, coordinate_derivatives, draw_probe, flow_jacobian
 
-__all__ = ["make_logpsi_grad_laplacian_analytic"]
+__all__ = ["make_logpsi_grad_laplacian_analytic", "flow_laplacian"]
 
 
-def make_logpsi_grad_laplacian_analytic(sp_indices, L, flow_jac_lap,
+def flow_laplacian(flow_apply, flow, x):
+    """The flow's coordinate Laplacian lap_u (B, nd), sum_alpha
+    d^2 u_mu / dx_alpha^2, by a forward-over-forward pass per basis vector
+    (the reference's ``dir_second`` fan-out), ``logpsi.columns_per_pass``
+    basis vectors a batched pass."""
+    B, n, dim = x.shape
+    nd = n * dim
+    eye = torch.eye(nd, dtype=x.dtype, device=x.device)
+
+    def flat(xf):
+        return flow_apply(flow, xf.reshape(n, dim)).reshape(-1)
+
+    def one(xf):
+        def dir_second(e):
+            first = lambda q: torch.func.jvp(flat, (q,), (e,))[1]  # noqa: E731
+            return torch.func.jvp(first, (xf,), (e,))[1]
+
+        return torch.func.vmap(dir_second, chunk_size=columns_per_pass(nd))(eye).sum(dim=0)
+
+    return torch.func.vmap(one)(x.reshape(B, nd))
+
+
+def make_logpsi_grad_laplacian_analytic(sp_indices, L, flow_jac_lap=None,
                                         hutchinson: bool = True, flow_jac=None,
-                                        flow_jac_lap_batched=None):
+                                        flow_jac_lap_batched=None, forloop: bool = False,
+                                        flow_apply=None):
     """Batched (grad, laplacian) of log Psi with the analytic Slater part.
 
     ``flow_jac_lap(flow, x) -> (u, J (B, nd, nd), lap_u (B, nd))`` supplies
     the analytic flow Jacobian and coordinate Laplacian.  The 1/2 log|det J|
     term is the differentiable Gram-Cholesky 1/4 log det(J J^T): exact
-    gradient, Hutchinson v^T H v estimate of its Laplacian (the exact column
-    loop, ``hutchinson=False``, is not ported yet).  That term is
+    gradient, and the Hutchinson v^T H v estimate of its Laplacian, or with
+    ``hutchinson=False`` the exact trace of its Hessian — in batched passes
+    over the nd basis vectors, ``logpsi.columns_per_pass`` a pass, or with
+    ``forloop`` one column at a time.  That term is
     differentiated twice and needs J alone: ``flow_jac(flow, x) -> (u, J)``,
     when given, spares it the Laplacian's propagation (default: the first two
     results of ``flow_jac_lap``).  ``flow_jac_lap_batched(flow, x) -> (u, J,
     lap_u)``, when given, replaces the primal flow evaluation of the Slater
     part — the slot consumed outside autograd — by one call for the whole
-    batch (the depth-2 closure kernel, ``ops.cuda_flow_d2``); the Hutchinson
+    batch (the depth-2 closure kernel, ``ops.cuda_flow_d2``); the log|det J|
     term keeps the differentiable ``flow_jac``.
+
+    With neither ``flow_jac_lap`` nor ``flow_jac``, ``flow_apply(flow, x)``
+    alone is differentiated: J by ``jacfwd``, lap_u by the forward-over-forward
+    fan-out (``flow_laplacian``), and log|det J| by ``jacfwd`` and ``slogdet``.
 
     Returns ``fn(x, flow, state_indices, generator=None, v=None) ->
     (grad (B, n, dim) complex, laplacian (B,) complex)``.  The Hutchinson
     probe ``v`` (B, n, dim) is drawn from ``generator`` on x's device unless
     handed in.  The results carry no autograd graph.
     """
-    if not hutchinson:
-        raise NotImplementedError(
-            "hutchinson=False (exact Laplacian of log|det J|) is not ported yet")
     sp_indices = np.asarray(sp_indices)
-    if flow_jac is None:
+    if flow_jac is None and flow_jac_lap is not None:
         flow_jac = lambda flow, x: flow_jac_lap(flow, x)[:2]  # noqa: E731
-    primal = flow_jac_lap_batched or flow_jac_lap
+    if flow_jac is None and flow_apply is None:
+        raise ValueError("make_logpsi_grad_laplacian_analytic needs flow_jac_lap, flow_jac "
+                         "or flow_apply")
+
+    def primal(flow, x):
+        if flow_jac_lap_batched is not None:
+            return flow_jac_lap_batched(flow, x)
+        if flow_jac_lap is not None:
+            return flow_jac_lap(flow, x)
+        # forward mode alone, under the caller's no_grad: with grad mode on,
+        # the fan-out would also record a graph to the flow's parameters
+        u, J = (flow_jac or (lambda f, q: flow_jacobian(flow_apply, f, q)))(flow, x)
+        return u, J, flow_laplacian(flow_apply, flow, x)
+
+    def logjacdet(flow, x):
+        """1/2 log|det J| (B, 1)."""
+        if flow_jac is not None:
+            _, J = flow_jac(flow, x)
+            return 0.25 * logdet_spd_single(J @ J.transpose(-1, -2))[:, None]
+        return 0.5 * torch.linalg.slogdet(flow_jacobian(flow_apply, flow, x)[1])[1][:, None]
 
     @torch.no_grad()
     def slater_part(x, flow, state_indices):
@@ -101,23 +150,11 @@ def make_logpsi_grad_laplacian_analytic(sp_indices, L, flow_jac_lap,
         lap_logphi = (lap_u.to(cdtype) * g_flat).sum(dim=-1) + term1 + term2
         return grad_logphi, lap_logphi
 
-    def logjacdet_part(x, flow, v):
-        """Gradient of 1/2 log|det J| and v^T (Hessian) v, by two reverse
-        passes: the walkers are independent, so the gradient of the batch sum
-        is the per-walker gradient, and so is the gradient of sum(grad * v)."""
-        with torch.enable_grad():
-            xg = x.detach().requires_grad_(True)
-            _, J = flow_jac(flow, xg)
-            ljd = 0.25 * logdet_spd_single(J @ J.transpose(-1, -2))
-            (grad,) = torch.autograd.grad(ljd.sum(), xg, create_graph=True)
-            (hvp,) = torch.autograd.grad((grad * v).sum(), xg)
-        return grad.detach(), (hvp * v).sum(dim=(-2, -1))
-
     def logpsi_grad_laplacian(x, flow, state_indices, generator=None, v=None):
-        if v is None:
-            v = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
         grad_logphi, lap_logphi = slater_part(x, flow, state_indices)
-        grad_ljd, lap_ljd = logjacdet_part(x, flow, v)
-        return grad_logphi + grad_ljd, lap_logphi + lap_ljd
+        probe = draw_probe(x, generator, v) if hutchinson else None
+        grad_ljd, lap_ljd = coordinate_derivatives(
+            lambda q: logjacdet(flow, q), x, forloop, probe=probe)
+        return grad_logphi + grad_ljd[:, 0], lap_logphi + lap_ljd[:, 0]
 
     return logpsi_grad_laplacian

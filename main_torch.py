@@ -3,19 +3,22 @@
 The port's counterpart of ``main.py``: the same flags, run-directory naming
 and ``data.txt`` columns, for the part of the system that is ported so far —
 Adam or stochastic reconfiguration (``--sr``, with ``--sr_solver`` and
-``--fisher_refresh``), ``--hutchinson``, the analytic Laplacian, and the
-Metropolis log-density on the hand-written CUDA kernels, with the depth-2
-closure kernels behind ``--mc_d2_kernel`` / ``--acc_d2_kernel``; the update
-tripwire (``--tripwire_sigma``, on by default as in ``main.py``) and the
-hang watchdog (``--hang_timeout``).  Flags that belong to parts not ported
-yet are parsed and refused with one line.  Runs on the GPU unless ``--cpu``
-is given.
+``--fisher_refresh``), the exact Laplacian or ``--hutchinson``, in batched
+passes or ``--forloop_laplacian``, the analytic Slater Laplacian or the
+generic-AD one (``--laplacian ad``), and the Metropolis log-density on the
+hand-written CUDA kernels or, with ``--slow_logp``, by ``jacfwd`` and
+``slogdet`` with no kernel; the depth-2 closure kernels behind
+``--mc_d2_kernel`` / ``--acc_d2_kernel``; the update tripwire
+(``--tripwire_sigma``, on by default as in ``main.py``) and the hang watchdog
+(``--hang_timeout``).  The multi-GPU flags are parsed and refused with one
+line.  Runs on the GPU unless ``--cpu`` is given.
 
 The pretrained VAN is read from ``params_van.pkl`` under ``--folder``, where
 ``main.py`` writes and looks for it; where there is none, the free-fermion
 pretraining runs first (``--pre_batch``, ``--pre_epoch``) and writes it there.
 
 Examples (the checked-in pretrainings and the n = 57 epoch-100 checkpoint):
+  python main_torch.py --folder data/interacting/ --out_folder runs/ --epoch 100
   python main_torch.py --hutchinson --folder data/interacting/ --epoch 100
   python main_torch.py --sr --sr_solver host64 --hutchinson --mc_d2_kernel \
       --acc_d2_kernel --folder data/interacting/ --out_folder runs/ --epoch 100
@@ -45,7 +48,9 @@ from coulombgas_tpu_torch.io.convert import (
     flow_from_numpy, flow_to_numpy, van_from_numpy, van_to_numpy,
 )
 from coulombgas_tpu_torch.io.logging import ObservableLog, stderr_from_moments
-from coulombgas_tpu_torch.models.ferminet import FermiNetConfig, init_ferminet_params
+from coulombgas_tpu_torch.models.ferminet import (
+    FermiNetConfig, ferminet_apply, init_ferminet_params,
+)
 from coulombgas_tpu_torch.models.ferminet_jac import select_flow_jac
 from coulombgas_tpu_torch.models.transformer import TransformerConfig, init_transformer_params
 from coulombgas_tpu_torch.ops.cuda_flow_d2 import flow_d2_fits, flow_u_jac_lap_d2_cuda
@@ -68,9 +73,12 @@ from coulombgas_tpu_torch.wavefunction.fast_laplacian import (
     make_logpsi_grad_laplacian_analytic,
 )
 from coulombgas_tpu_torch.wavefunction.fast_logp import make_logp_fast
-from coulombgas_tpu_torch.wavefunction.logpsi import make_logpsi_fast, make_quantum_score
+from coulombgas_tpu_torch.wavefunction.logpsi import (
+    make_logp, make_logphi_logjacdet, make_logpsi, make_logpsi_fast,
+    make_logpsi_grad_laplacian, make_quantum_score,
+)
 
-SLICE_REST = "slice 4 (generic-AD engines, multi-GPU)"
+SLICE_REST = "a later slice (multi-GPU)"
 
 
 def parse_args(argv=None):
@@ -114,11 +122,15 @@ def parse_args(argv=None):
 
     # technical
     parser.add_argument("--hutchinson", action="store_true",
-                        help="Hutchinson estimate of the flow-Jacobian Laplacian "
-                             "(required: the exact column loop is not ported yet)")
-    parser.add_argument("--forloop_laplacian", action="store_true")
-    parser.add_argument("--laplacian", choices=["analytic", "ad"], default="analytic")
-    parser.add_argument("--slow_logp", action="store_true")
+                        help="Hutchinson estimate of the flow-Jacobian Laplacian")
+    parser.add_argument("--forloop_laplacian", action="store_true",
+                        help="sequential Hessian columns (less memory) instead of batched")
+    parser.add_argument("--laplacian", choices=["analytic", "ad"], default="analytic",
+                        help="Slater-part Laplacian: closed-form plane-wave identities "
+                             "or generic reverse-over-reverse AD")
+    parser.add_argument("--slow_logp", action="store_true",
+                        help="the slogdet-based Metropolis density (jacfwd of the flow, "
+                             "no kernel) instead of the Gram-Cholesky kernels")
     parser.add_argument("--mc_microbatch", type=int, default=0,
                         help="batch-chunk size for the MCMC logp (0 = whole batch)")
     parser.add_argument("--flow_jac", choices=["auto", "carried", "d2"], default="auto")
@@ -171,10 +183,6 @@ def reject_unported(args):
     """Refuse, with one line each, the flags whose code is not ported yet and
     the requests that this run's other flags cannot meet."""
     waits = [
-        (not args.hutchinson, "running without --hutchinson", SLICE_REST),
-        (args.forloop_laplacian, "--forloop_laplacian", SLICE_REST),
-        (args.laplacian != "analytic", "--laplacian ad", SLICE_REST),
-        (args.slow_logp, "--slow_logp", SLICE_REST),
         (args.multihost or args.coordinator is not None
          or args.num_processes is not None or args.process_id is not None,
          "--multihost/--coordinator/--num_processes/--process_id", SLICE_REST),
@@ -335,15 +343,25 @@ def build_trainer(args, out_folder=None) -> Trainer:
     flow = init_ferminet_params(flow_cfg, dim, cpu_gen, rdtype, device)
     print("#parameters in the flow model: %d" % sum(p.numel() for p in flow.parameters()))
     flow_jac, flow_jac_lap = select_flow_jac(flow_cfg, args.flow_jac)
-    logpsi = make_logpsi_fast(flow_jac, sp_indices_twist, L)
-    # Metropolis density: the flow kernel feeding the fused log-det tail kernel
-    # (--mc_d2_kernel: the depth-2 closure kernel in the flow kernel's place)
-    # Past a kernel's size limit the closure takes the reference's route
-    # around it; the route is named here, so that nothing is chosen silently.
-    logp = make_logp_fast(sp_indices_twist, L, chunk=args.mc_microbatch or None,
-                          jacobian=flow_jac, use_d2_flow=args.mc_d2_kernel)
-    print("logp route: %s%s" % (logp.route(n, dim, flow_cfg, device),
-                                " (plain versions on the CPU)" if device.type == "cpu" else ""))
+    if args.slow_logp:
+        # escape hatch: jacfwd Jacobians and LU slogdets everywhere, no kernel
+        logpsi = make_logpsi(ferminet_apply, sp_indices_twist, L)
+        logp = make_logp(logpsi)
+        route = "make_logp(make_logpsi): jacfwd of the flow + slogdet, no kernel"
+        if args.mc_d2_kernel:  # main.py ignores it here too
+            route += " (--mc_d2_kernel has no effect)"
+    else:
+        logpsi = make_logpsi_fast(flow_jac, sp_indices_twist, L)
+        # Metropolis density: the flow kernel feeding the fused log-det tail
+        # kernel (--mc_d2_kernel: the depth-2 closure kernel in the flow
+        # kernel's place).  Past a kernel's size limit the closure takes the
+        # reference's route around it; the route is named here, so that
+        # nothing is chosen silently.
+        logp = make_logp_fast(sp_indices_twist, L, chunk=args.mc_microbatch or None,
+                              jacobian=flow_jac, use_d2_flow=args.mc_d2_kernel)
+        route = logp.route(n, dim, flow_cfg, device)
+    print("logp route: %s%s" % (route, " (plain versions on the CPU)"
+                                if device.type == "cpu" and not args.slow_logp else ""))
 
     # ---- Ewald -------------------------------------------------------------
     G = kpoints(dim, args.Gmax)
@@ -373,20 +391,36 @@ def build_trainer(args, out_folder=None) -> Trainer:
 
     # ---- training programs --------------------------------------------------
     sample_step = make_sample_step(sampler, logp, args.mc_steps, args.mc_stddev, L, args.batch)
-    flow_jac_lap_batched = None
-    if args.acc_d2_kernel:
-        # the primal flow + Jacobian + Laplacian of the kinetic energy from the
-        # depth-2 closure kernel, one launch for the batch; an explicit
-        # request, so it engages or the run ends here
-        if not flow_d2_fits(n, dim, flow_cfg, lap=True, device=device):
-            raise SystemExit(
-                "main_torch.py: --acc_d2_kernel requested but the depth-2 closure kernel "
-                "cannot engage: n = %d, dim = %d, widths %d/%d are beyond its limits "
-                "(n <= 64, dim <= 3, widths <= 32)" % (n, dim, args.spsize, args.tpsize))
-        flow_jac_lap_batched = flow_u_jac_lap_d2_cuda
-    logpsi_grad_laplacian = make_logpsi_grad_laplacian_analytic(
-        sp_indices_twist, L, flow_jac_lap, hutchinson=args.hutchinson, flow_jac=flow_jac,
-        flow_jac_lap_batched=flow_jac_lap_batched)
+    if args.laplacian == "analytic":
+        flow_jac_lap_batched = None
+        if args.acc_d2_kernel:
+            # the primal flow + Jacobian + Laplacian of the kinetic energy from
+            # the depth-2 closure kernel, one launch for the batch; an
+            # explicit request, so it engages or the run ends here
+            if args.slow_logp:
+                raise SystemExit("main_torch.py: --acc_d2_kernel requires the fast logp "
+                                 "path, not --slow_logp")
+            if not flow_d2_fits(n, dim, flow_cfg, lap=True, device=device):
+                raise SystemExit(
+                    "main_torch.py: --acc_d2_kernel requested but the depth-2 closure "
+                    "kernel cannot engage: n = %d, dim = %d, widths %d/%d are beyond its "
+                    "limits (n <= 64, dim <= 3, widths <= 32)"
+                    % (n, dim, args.spsize, args.tpsize))
+            flow_jac_lap_batched = flow_u_jac_lap_d2_cuda
+        # under --slow_logp the flow is differentiated by generic AD alone
+        analytic = not args.slow_logp
+        logpsi_grad_laplacian = make_logpsi_grad_laplacian_analytic(
+            sp_indices_twist, L, flow_jac_lap if analytic else None,
+            hutchinson=args.hutchinson, flow_jac=flow_jac if analytic else None,
+            flow_jac_lap_batched=flow_jac_lap_batched, forloop=args.forloop_laplacian,
+            flow_apply=ferminet_apply)
+    else:
+        if args.acc_d2_kernel:  # main.py ignores it here too
+            print("laplacian route: generic AD (--acc_d2_kernel has no effect)")
+        logphi, logjacdet = make_logphi_logjacdet(ferminet_apply, sp_indices_twist, L)
+        logpsi_grad_laplacian = make_logpsi_grad_laplacian(
+            logpsi, forloop=args.forloop_laplacian, hutchinson=args.hutchinson,
+            logphi=logphi, logjacdet=logjacdet)
     observable_and_lossfn = make_loss(
         log_prob, logpsi, logpsi_grad_laplacian, args.kappa, G, L, args.rs, Vconst, beta)
     accumulate, apply_update = make_accumulate_and_apply(

@@ -61,6 +61,23 @@ def test_chol_logdet_deflates_singular_input_like_jax():
         torch.linalg.cholesky(t(A[0]))
 
 
+@pytest.mark.parametrize("dtype,m,route", [
+    (torch.float32, 58, "kernel"), (torch.float32, cuda_logdet.K3_MAX_M + 1, "plain"),
+    (torch.float64, 58, "plain"), (torch.float16, 58, "plain"),
+])
+def test_chol_logdet_dispatches_a_cuda_matrix_as_the_jax_package_does(monkeypatch, dtype, m,
+                                                                       route):
+    """A CUDA matrix goes to the kernel for f32 within its size limit, as the
+    JAX dispatcher takes its kernel for f32 only, and to the plain elimination
+    on its own device otherwise (the wrappers stubbed: no card here)."""
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(cuda_logdet, "chol_logdet_cuda", lambda A: "kernel")
+    monkeypatch.setattr(tl, "chol_logdet_ref", lambda A: "plain")
+    A = SimpleNamespace(dtype=dtype, device=torch.device("cuda"), shape=(3, m, m))
+    assert tl.chol_logdet(A) == route
+
+
 def test_chol_logdet_single_takes_batch_dimensions():
     A = _spd(np.random.default_rng(0), 6, 5)
     one = tl.chol_logdet_single(t(A[0]))

@@ -211,26 +211,37 @@ def test_cli_trains_and_resumes_on_the_checked_in_pretraining(tmp_path):
 
 
 @pytest.mark.parametrize("flags,word", [
-    (["--forloop_laplacian"], "slice 4"), (["--num_devices", "2"], "slice 4"),
-    (["--coordinator", "localhost:1234"], "slice 4"), (["--num_processes", "2"], "slice 4"),
-    (["--process_id", "0"], "slice 4"), (["--slow_logp"], "slice 4"),
-    (["--laplacian", "ad"], "slice 4"), (["--multihost"], "slice 4"),
-    (["--multihost", "--process_id", "1"], "slice 4"), (["--num_devices", "4"], "slice 4"),
+    (["--forloop_laplacian"], None), (["--num_devices", "2"], "multi-GPU"),
+    (["--coordinator", "localhost:1234"], "multi-GPU"), (["--num_processes", "2"], "multi-GPU"),
+    (["--process_id", "0"], "multi-GPU"), (["--slow_logp"], None),
+    (["--laplacian", "ad"], None), (["--multihost"], "multi-GPU"),
+    (["--multihost", "--process_id", "1"], "multi-GPU"), (["--num_devices", "4"], "multi-GPU"),
 ])
 def test_cli_refuses_flags_of_later_slices(flags, word):
+    """Only the multi-GPU flags wait for a later slice; the generic-AD engines'
+    flags (``word`` None) are accepted, with or without --hutchinson."""
     import main_torch
 
-    args = main_torch.parse_args(["--cpu", "--hutchinson"] + flags)
-    with pytest.raises(SystemExit) as err:
-        main_torch.reject_unported(args)
-    assert "not ported yet" in str(err.value) and word in str(err.value)
+    for base in (["--cpu", "--hutchinson"], ["--cpu"]):
+        args = main_torch.parse_args(base + flags)
+        if word is None:
+            main_torch.reject_unported(args)
+            continue
+        with pytest.raises(SystemExit) as err:
+            main_torch.reject_unported(args)
+        assert "not ported yet" in str(err.value) and word in str(err.value)
 
 
 def test_cli_needs_hutchinson_a_pretrained_van_and_a_device(tmp_path, capsys):
+    """main.py's default line (no --hutchinson) builds; without a pretrained
+    VAN the pretraining runs first; CUDA is the default device."""
     import main_torch
 
-    with pytest.raises(SystemExit, match="hutchinson"):
-        main_torch.build_trainer(main_torch.parse_args(["--cpu"]))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tr = main_torch.build_trainer(
+        main_torch.parse_args(["--cpu", "--folder", os.path.join(root, "data", "interacting") + os.sep]),
+        out_folder=str(tmp_path / "default"))
+    assert "_hutchinson" not in os.path.basename(tr.path) and tr.x.shape == (2048, 29, 2)
     # without a pretrained VAN under --folder the pretraining runs and writes one
     args = main_torch.parse_args(
         ["--cpu", "--hutchinson", "--folder", str(tmp_path) + os.sep, "--n", "5", "--Emax", "4",

@@ -138,8 +138,12 @@ def test_grad_laplacian_draws_its_probe_from_the_generator():
     g3, l3 = fn(t(x), flow, t(si), torch.Generator().manual_seed(6))
     assert torch.equal(l1, l2) and torch.equal(g1, g2)
     assert torch.equal(g1, g3) and not torch.equal(l1, l3)  # only the Laplacian is stochastic
-    with pytest.raises(NotImplementedError):
-        make_logpsi_grad_laplacian_analytic(sp, cfg.L, ferminet_apply_jac_lap, hutchinson=False)
+    # the exact Laplacian (hutchinson=False) draws nothing: the same numbers
+    # whatever the generator
+    exact = make_logpsi_grad_laplacian_analytic(sp, cfg.L, ferminet_apply_jac_lap, hutchinson=False)
+    g4, l4 = exact(t(x), flow, t(si), torch.Generator().manual_seed(5))
+    g5, l5 = exact(t(x), flow, t(si), torch.Generator().manual_seed(6))
+    assert torch.equal(g4, g5) and torch.equal(l4, l5) and torch.equal(g4, g1)
 
 
 def test_identity_flow_kinetic_energy_is_sum_k_squared():
