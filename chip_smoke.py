@@ -62,7 +62,22 @@ exit code:
            Metropolis sweeps, its launch counters, and logp against plain f64;
   pretrain 20 epochs of the free-fermion pretraining (n = 13, Emax 25,
            batch 8192, SR as main_torch.py runs it) with F beside the exact
-           mpmath value.
+           mpmath value;
+  dist     data parallelism over torch.distributed, in subprocesses of
+           main_torch.py on main.py's --sr --hutchinson line at the default
+           width (n 29, batch 2048), 2 epochs, acc_steps 1, mc_therm 2:
+           (a) a process group of world size 1 under NCCL, whose data.txt
+           rows and checksum must equal the same run's without a group, bit
+           for bit; (b) two ranks (NCCL on two cards, or gloo for two ranks
+           on the one card, which NCCL refuses), with finite rows and equal
+           checksums on both ranks; (d) where the machine has four cards,
+           four NCCL ranks with --microbatch 1024 (chunks of two ranks:
+           sub-groups), finite rows and four equal checksums; (c) one Adam
+           accumulate and apply on one shared global batch in f32 (the
+           walkers of (a)'s checkpoint) in two ranks against one process:
+           observables, reduced accumulators and parameters within the
+           tolerances below; the backend, world size and seconds by phase.
+           ``python3 chip_smoke.py --dist_only`` runs this phase alone.
 
 The line before the last lists every kernel with its launches on the main
 path, its error, its time and its bound; K1, K5 and K6 also with the time
@@ -76,6 +91,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -90,7 +106,7 @@ if not torch.cuda.is_available():
 
 from coulombgas_tpu_torch.models.ferminet import FermiNet, FermiNetConfig, init_ferminet_params
 from coulombgas_tpu_torch.io.checkpoint import load_data
-from coulombgas_tpu_torch.io.convert import flow_from_numpy, ravel_params
+from coulombgas_tpu_torch.io.convert import flow_from_numpy, ravel_params, van_from_numpy
 from coulombgas_tpu_torch.ops import (
     _build, cuda_flow_d2, cuda_flow_jac, cuda_flow_large, cuda_fused_logp, cuda_logdet,
 )
@@ -144,6 +160,26 @@ TOL_LAP = 1e-5
 # with some cancellation; ten times that.
 TOL_ENGINE_F64 = 1e-8
 TOL_ENGINE_F32 = 1e-3
+# Two ranks against one process on the same global batch in f32: every
+# per-walker value is the same arithmetic, only the batch means are summed
+# in another order.  Observables: a mean of 2048 f32 numbers, relative
+# error a few times 1e-7; 1e-5.  Accumulators (gradients, scores), relative
+# in the norm of each module's whole vector: the means cancel (the scores
+# average to about zero), which costs up to the ratio of the summed
+# magnitudes to the sum; 1e-4.  (A tensor whose exact mean is zero, as the
+# score of a direction the model is blind to, is rounding noise in both
+# runs; it is reported, not held.)  Parameters after one Adam step of
+# lr 1e-3: the first step is lr g / (|g| + 1e-8), the sign of g wherever
+# |g| is above 1e-8, so it is held where the gradient (after the baseline)
+# is determined to 1 % between the two runs, and moves there by at most lr
+# times 1e-2 times 1e-8 / |g| -- below 1e-6.  Where it is not determined
+# the step takes the sign of rounding noise in either run.  Those entries
+# are counted and held to 2 % of all (about 1 % measured), so that a two-rank
+# gradient wrong everywhere cannot pass by leaving nothing to hold.
+TOL_DIST_OBS = 1e-5
+TOL_DIST_ACC = 1e-4
+TOL_DIST_PARAM = 1e-6
+TOL_DIST_UNDETERMINED = 0.02
 
 
 def emit(obj):
@@ -1528,7 +1564,287 @@ def phase_pretrain(epochs: int = 20):
           "seconds": seconds, "s_per_epoch": seconds / epochs, "oracle_s": oracle_s})
 
 
+# --num_devices 1: the default 0 is every visible GPU; the two-rank runs of
+# (b) give 2 after it
+DIST_LINE = ["--folder", "data/interacting/", "--sr", "--hutchinson", "--mc_therm", "2",
+             "--acc_steps", "1", "--epoch", "2", "--ckpt_every", "2", "--num_devices", "1"]
+
+
+def _run_all(cmds, timeout=600):
+    """Start every command at once; wait for all; return (exit codes,
+    outputs, seconds).  Every process started here is stopped here."""
+    t0 = time.time()
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], outs, time.time() - t0
+
+
+def _checked(rcs, outs, what):
+    for r, (rc, out) in enumerate(zip(rcs, outs)):
+        if rc != 0:
+            print(out[-6000:], flush=True)
+        check(rc == 0, "%s: process %d exited with %d" % (what, r, rc))
+
+
+def _checksums(outs):
+    """Every ``final params checksum:`` in ``outs``.  Searched anywhere in a
+    line: ranks that share a pipe write whole lines from Python, but a
+    library's log line written to stderr in pieces may start before one."""
+    return [m for out in outs for m in re.findall(r"final params checksum: ([0-9a-f]{64})", out)]
+
+
+def _same_checksums(outs, ranks, what):
+    """The one checksum of ``ranks`` ranks, after checking that every rank
+    printed it; the processes' output ends are printed if not."""
+    sums = _checksums(outs)
+    if len(sums) != ranks or len(set(sums)) != 1:
+        for out in outs:
+            print(out[-6000:], flush=True)
+    check(len(sums) == ranks and len(set(sums)) == 1,
+          "%s: the ranks' checksums differ: %s" % (what, sums))
+    return sums[0]
+
+
+def _rows(folder):
+    runs = [d for d in os.listdir(folder) if d.startswith("n_29_")]
+    check(len(runs) == 1, "dist: run directories %s under %s" % (runs, folder))
+    with open(os.path.join(folder, runs[0], "data.txt")) as f:
+        return runs[0], f.read().splitlines()
+
+
+def dist_step(argv, ckpt, si, v, out_folder):
+    """One accumulate and apply of main_torch.py with ``argv`` on this
+    rank's share of the global batch: the walkers and parameters of the
+    checkpoint ``ckpt``, the occupations ``si`` and Hutchinson probe ``v``."""
+    import main_torch
+    from coulombgas_tpu_torch.io.checkpoint import to_host
+    from coulombgas_tpu_torch.io.convert import flow_to_numpy, van_to_numpy
+    from coulombgas_tpu_torch.parallel import mesh
+    from coulombgas_tpu_torch.train.train import init_accumulators, reduce_accumulators
+
+    args = main_torch.parse_args(argv)
+    tr = main_torch.build_trainer(args, out_folder)
+    state = load_data(ckpt)
+    van_from_numpy(state["params_van"], tr.van)
+    flow_from_numpy(state["params_flow"], tr.flow)
+    x, si, v = (torch.as_tensor(mesh.shard_batch(a)).to(tr.device)
+                for a in (state["x"], si, v))
+    acc = tr.accumulate(tr.van, tr.flow, si.long(), x.to(torch.float32), None,
+                        init_accumulators(tr.van, tr.flow, sr=args.sr), v=v.to(torch.float32))
+    acc, _ = reduce_accumulators(acc)
+    reduced = to_host(acc)
+    d, _ = main_torch.apply_step(tr, acc, 1, {})
+    return {"d": d, "acc": reduced, "van": van_to_numpy(tr.van), "flow": flow_to_numpy(tr.flow)}
+
+
+def dist_rank_main(rank: int, world: int, port: int, job: str):
+    """``python3 chip_smoke.py --dist_rank R W PORT JOB``: rank R of W for
+    the dist phase's shared-batch step; rank 0 writes the result."""
+    import pickle
+
+    from coulombgas_tpu_torch.parallel import mesh
+
+    with open(job, "rb") as f:
+        spec = pickle.load(f)
+    grid = mesh.make_mesh("tcp://localhost:%d" % port, rank, world,
+                          torch.device("cuda", rank % torch.cuda.device_count()))
+    try:
+        res = dist_step(spec["argv"], spec["ckpt"], spec["si"], spec["v"], spec["out"])
+    finally:
+        mesh.destroy()
+    res["backend"] = grid.backend
+    if rank == 0:
+        with open(job + ".out", "wb") as f:
+            pickle.dump(res, f)
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def compare_dist_step(ranks, one, names) -> dict:
+    """The dist phase's shared-batch step in two ranks (``ranks``) against
+    one process (``one``), each a result of ``dist_step``; ``names`` the
+    parameter names of the VAN and the flow in module order."""
+    from coulombgas_tpu_torch.io.convert import flatten_tree
+
+    obs = max(abs(ranks["d"][k] - one["d"][k]) / max(abs(one["d"][k]), 1e-30)
+              for k in one["d"])
+    flat, flat_one = flatten_tree(ranks["acc"]), flatten_tree(one["acc"])
+    groups = {}
+    for k in flat_one:  # one vector per accumulator and module
+        groups.setdefault(k if k.startswith("data.") else k.rsplit(".", 1)[0], []).append(k)
+    acc = {g: _rel(np.concatenate([np.ravel(flat[k]) for k in ks]),
+                   np.concatenate([np.ravel(flat_one[k]) for k in ks]))
+           for g, ks in groups.items()}
+    tensors = {k: _rel(flat[k], flat_one[k]) for k in flat_one if not k.startswith("data.")}
+
+    def adam_gradient(f):  # what Adam is given: the baseline-corrected gradient
+        return {"%s.%s" % (mod, name): np.asarray(
+                    f["grads.%d.%d" % (i, j)] - f["data." + base] * f["%s.%d" % (sc, j)],
+                    np.float64)
+                for i, (mod, base, sc) in enumerate((("van", "F_mean", "classical_score"),
+                                                     ("flow", "E_mean", "quantum_score")))
+                for j, name in enumerate(names[i])}
+
+    g, g_one = adam_gradient(flat), adam_gradient(flat_one)
+    p, p_one = (flatten_tree({"van": r["van"], "flow": r["flow"]}) for r in (ranks, one))
+    held = {k: np.abs(g[k] - g_one[k]) <= 1e-2 * np.abs(g_one[k]) for k in g_one}
+    param = max(float(np.abs(np.asarray(p[k], np.float64) - p_one[k])[held[k]].max(initial=0))
+                for k in p_one)
+    undetermined = sum(int((~h).sum()) for h in held.values())
+    return {"observables_max_rel_err": obs, "accumulators_max_rel_err": max(acc.values()),
+            "accumulators_rel_err": acc,
+            "tensors_rel_err_over_tol": {k: v for k, v in tensors.items() if v > TOL_DIST_ACC},
+            "params_max_abs_err_where_gradient_determined": param,
+            "params_undetermined": [undetermined, sum(h.size for h in held.values())],
+            "params_max_abs_err_all": max(float(np.abs(np.asarray(p[k], np.float64)
+                                                       - p_one[k]).max()) for k in p_one),
+            "tolerances": [TOL_DIST_OBS, TOL_DIST_ACC, TOL_DIST_PARAM, TOL_DIST_UNDETERMINED]}
+
+
+def phase_dist():
+    """Data parallelism through main_torch.py's entry points: a world of one
+    under NCCL against no group, two ranks, four ranks in sub-groups of two
+    where the machine has four cards, and one shared-batch step in two ranks
+    against one process."""
+    import pickle
+    import tempfile
+
+    import main_torch
+    from coulombgas_tpu_torch.io.convert import flatten_tree
+
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    me = [sys.executable, "main_torch.py", *DIST_LINE]
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        alone, world1, two = (os.path.join(tmp, k) for k in ("alone", "world1", "two"))
+        # (a) a world of one under NCCL, and the same run without a group
+        rcs, outs, seconds["no_group_and_world_1"] = _run_all([
+            me + ["--out_folder", alone],
+            me + ["--out_folder", world1, "--multihost", "--coordinator",
+                  "localhost:%d" % main_torch.free_port(), "--num_processes", "1",
+                  "--process_id", "0"]])
+        _checked(rcs, outs, "dist (a)")
+        check("rank 0 of 1 (nccl)" in outs[1], "dist (a): the world of one is not under NCCL")
+        name_a, rows_a = _rows(alone)
+        name_1, rows_1 = _rows(world1)
+        sums_a = _checksums(outs)
+        check(name_a == name_1 and name_a.endswith("_ndevices_1_accsteps_1"),
+              "dist (a): run directories %s, %s" % (name_a, name_1))
+        check(len(rows_a) == 2 and rows_a == rows_1 and len(sums_a) == 2
+              and sums_a[0] == sums_a[1],
+              "dist (a): the world of one differs from no group: %s / %s, %s"
+              % (rows_a, rows_1, sums_a))
+        emit({"phase": "dist", "case": "world_1", "backend": "nccl", "world_size": 1,
+              "rows_equal": True, "checksum_equal": True, "checksum": sums_a[0],
+              "seconds": seconds["no_group_and_world_1"]})
+
+        # (b) two ranks: NCCL on two cards, gloo for two ranks on one card
+        if cards >= 2:
+            cmds = [me + ["--out_folder", two, "--num_devices", "2"]]
+        else:
+            port = main_torch.free_port()
+            cmds = [me + ["--out_folder", two, "--num_devices", "2", "--multihost",
+                          "--coordinator", "localhost:%d" % port, "--num_processes", "2",
+                          "--process_id", str(r)]
+                    for r in range(2)]
+        rcs, outs, seconds["two_ranks"] = _run_all(cmds)
+        _checked(rcs, outs, "dist (b)")
+        text = "\n".join(outs)
+        backend = "nccl" if "rank 1 of 2 (nccl)" in text else "gloo"
+        check("rank 0 of 2 (%s)" % backend in text and "rank 1 of 2 (%s)" % backend in text,
+              "dist (b): the two ranks did not both join")
+        name_b, rows_b = _rows(two)
+        data = np.array([r.split() for r in rows_b], float)
+        _same_checksums(outs, 2, "dist (b)")
+        check(name_b.endswith("_batch_2048_ndevices_2_accsteps_1") and data.shape == (2, 12)
+              and np.isfinite(data).all() and ((data[:, 11] > 0.05) & (data[:, 11] < 0.95)).all(),
+              "dist (b): run directory %s, rows %s" % (name_b, rows_b))
+        emit({"phase": "dist", "case": "two_ranks", "backend": backend, "world_size": 2,
+              "cards": cards, "rows": rows_b, "checksums_equal": True,
+              "seconds": seconds["two_ranks"]})
+
+        if cards >= 4:
+            # (d) four ranks, microbatch chunks of two ranks: NCCL sub-groups
+            four = os.path.join(tmp, "four")
+            rcs, outs, seconds["four_ranks_subgroups"] = _run_all(
+                [me + ["--out_folder", four, "--num_devices", "4", "--microbatch", "1024"]])
+            _checked(rcs, outs, "dist (d)")
+            name_d, rows_d = _rows(four)
+            data = np.array([r.split() for r in rows_d], float)
+            check("rank 3 of 4 (nccl)" in outs[0] and name_d.endswith("_ndevices_4_accsteps_1")
+                  and data.shape == (2, 12) and np.isfinite(data).all(),
+                  "dist (d): run directory %s, rows %s" % (name_d, rows_d))
+            _same_checksums(outs, 4, "dist (d)")
+            joined = [ln for ln in outs[0].splitlines() if "final params checksum:" in ln
+                      and not ln.startswith("final params checksum:")]
+            emit({"phase": "dist", "case": "four_ranks_subgroups", "backend": "nccl",
+                  "world_size": 4, "microbatch": 1024, "rows": rows_d,
+                  "checksums_equal": True, "checksum_lines_joined": joined,
+                  "seconds": seconds["four_ranks_subgroups"]})
+
+        # (c) one Adam step on one shared global batch: two ranks against one
+        argv = ["--folder", "data/interacting/", "--hutchinson", "--acc_steps", "1"]
+        ckpt = os.path.join(alone, name_a, "epoch_000002.pkl")
+        tr = main_torch.build_trainer(main_torch.parse_args(argv), os.path.join(tmp, "one"))
+        van_from_numpy(load_data(ckpt)["params_van"], tr.van)
+        gen = torch.Generator(device=DEV).manual_seed(5)
+        si = tr.sampler(tr.van, gen, BATCH).cpu().numpy()
+        v = torch.randn(BATCH, N, DIM, generator=gen, device=DEV).cpu().numpy()
+        names = [[k for k, _ in m.named_parameters()] for m in (tr.van, tr.flow)]
+        del tr
+        t0 = time.time()
+        one = dist_step(argv, ckpt, si, v, os.path.join(tmp, "one"))
+        seconds["one_process_step"] = time.time() - t0
+        job = os.path.join(tmp, "job.pkl")
+        with open(job, "wb") as f:
+            pickle.dump({"argv": argv, "ckpt": ckpt, "si": si, "v": v,
+                         "out": os.path.join(tmp, "ranks")}, f)
+        port = main_torch.free_port()
+        rcs, outs, seconds["two_rank_step"] = _run_all([
+            [sys.executable, "chip_smoke.py", "--dist_rank", str(r), "2", str(port), job]
+            for r in range(2)])
+        _checked(rcs, outs, "dist (c)")
+        with open(job + ".out", "rb") as f:
+            ranks = pickle.load(f)
+        out = compare_dist_step(ranks, one, names)
+        emit(dict({"phase": "dist", "case": "shared_batch_step", "optimizer": "adam",
+                   "backend": ranks["backend"], "world_size": 2, "dtype": "float32",
+                   "seconds": {k: seconds[k] for k in ("one_process_step", "two_rank_step")}},
+                  **out))
+        obs, acc = out["observables_max_rel_err"], out["accumulators_rel_err"]
+        param = out["params_max_abs_err_where_gradient_determined"]
+        check(obs <= TOL_DIST_OBS, "dist (c): observables differ by %g" % obs)
+        check(max(acc.values()) <= TOL_DIST_ACC, "dist (c): accumulators differ: %s" % acc)
+        check(param <= TOL_DIST_PARAM, "dist (c): parameters differ by %g" % param)
+        undetermined, entries = out["params_undetermined"]
+        check(undetermined <= TOL_DIST_UNDETERMINED * entries,
+              "dist (c): the gradient is undetermined in %d of %d entries"
+              % (undetermined, entries))
+    emit({"phase": "dist", "seconds_by_phase": seconds})
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "--dist_rank":
+        rank, world, port = (int(a) for a in sys.argv[2:5])
+        dist_rank_main(rank, world, port, sys.argv[5])
+        return
+    if sys.argv[1:] == ["--dist_only"]:
+        # the dist phase alone, for a machine with several cards
+        smi = phase_device()
+        phase_dist()
+        print(smi, flush=True)
+        return
     t0 = time.time()
     smi = phase_device()
     phase_build()
@@ -1541,6 +1857,7 @@ def main():
     counts_n57, counts_k4 = phase_train_n57()
     counts_routes = phase_routes()
     phase_pretrain()
+    phase_dist()
     paths = {"default": counts_default, "adam": counts, "sr": counts_sr,
              **{"engines_" + k: c for k, c in counts_engines.items()}, "n57": counts_n57, "n57_large_flow_step": counts_k4,
              **{"route_" + k: c for k, c in counts_routes.items()}}

@@ -18,6 +18,7 @@ from .checkpoint import load_data
 
 __all__ = ["flatten_tree", "unflatten_tree", "van_from_numpy", "flow_from_numpy",
            "van_to_numpy", "flow_to_numpy", "load_reference_checkpoint",
+           "adam_state_from_reference", "sr_state_from_reference",
            "ravel_order", "ravel_named", "ravel_params", "unravel_like"]
 
 
@@ -106,12 +107,55 @@ def flow_to_numpy(flow: FermiNet):
 def load_reference_checkpoint(path: str) -> dict:
     """Read an ``epoch_%06d.pkl`` written by either training script.
 
-    Returns ``{"x", "params_van", "params_flow"}`` as numpy; a foreign RNG
-    ``key`` and optimizer state are dropped (neither carries over between the
-    two frameworks).
+    Returns ``{"x", "params_van", "params_flow"}`` as numpy, and the
+    optimizer state ``opt_state`` of a ``main.py`` checkpoint where it has
+    one (``adam_state_from_reference``, ``sr_state_from_reference``).  The
+    RNG ``key`` is dropped: JAX's threefry key means nothing to PyTorch's
+    generators.
     """
     ckpt = load_data(path)
-    return {k: ckpt[k] for k in ("x", "params_van", "params_flow")}
+    return {k: ckpt[k] for k in ("x", "params_van", "params_flow", "opt_state") if k in ckpt}
+
+
+def _named_tensors(tree, module) -> list:
+    """A pytree shaped as ``module``'s parameters -> tensors in the order of
+    ``module.parameters()``."""
+    named = _state_dict(tree, module)
+    return [named[k] for k, _ in module.named_parameters()]
+
+
+def adam_state_from_reference(opt_state, van: Transformer, flow: FermiNet,
+                              optimizer: torch.optim.Adam) -> int:
+    """Carry ``main.py``'s optax Adam state over into ``optimizer``.
+
+    ``opt_state`` is optax.adam's ``(ScaleByAdamState(count, mu, nu),
+    EmptyState())`` over the pytree pair ``(params_van, params_flow)``, as a
+    ``main.py`` checkpoint holds it (``io.checkpoint.load_data`` reads the
+    optax classes as tuples).  ``optimizer`` is the ``torch.optim.Adam`` over
+    ``[*van.parameters(), *flow.parameters()]``: each parameter's
+    ``exp_avg`` / ``exp_avg_sq`` become optax's ``mu`` / ``nu`` of the same
+    leaf and ``step`` its ``count``, so that the next step is optax's.
+    Returns the step count.
+    """
+    count, mu, nu = opt_state[0]
+    params = [*van.parameters(), *flow.parameters()]
+    moments = [[*_named_tensors(m[0], van), *_named_tensors(m[1], flow)] for m in (mu, nu)]
+    step = int(np.asarray(count))
+    state = optimizer.state_dict()
+    state["state"] = {
+        i: {"step": torch.tensor(float(step), dtype=torch.float32),
+            "exp_avg": m.to(p), "exp_avg_sq": v.to(p)}
+        for i, (p, m, v) in enumerate(zip(params, *moments))}
+    optimizer.load_state_dict(state)
+    return step
+
+
+def sr_state_from_reference(opt_state) -> dict:
+    """``main.py``'s hybrid-SR state (the last solve's ``gnorm_van``,
+    ``scale_van``, ``gnorm_flow``, ``scale_flow``) as the port's
+    ``sr_state``: Python floats."""
+    return {k: float(np.asarray(opt_state[k]))
+            for k in ("gnorm_van", "scale_van", "gnorm_flow", "scale_flow")}
 
 
 # ---- the raveled parameter vector ------------------------------------------------

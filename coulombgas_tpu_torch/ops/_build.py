@@ -6,6 +6,11 @@ interface, loaded with ``ctypes``.  No PyTorch header is included, so a build
 takes seconds.  A library is built at first use, or all at once and in
 parallel by ``build_all``.  A build or load failure raises: nothing falls
 back to another implementation.
+
+``nvcc`` writes to a name of its own process and the finished library is
+renamed into place, so processes that build at once (the ranks of a
+multi-GPU run reaching their first launch together) each load a whole
+library, never a half-written one.
 """
 
 from __future__ import annotations
@@ -49,11 +54,15 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, "lib%s.so" % name)
 
 
+def _partial_path(name: str) -> str:
+    return "%s.%d.partial" % (library_path(name), os.getpid())
+
+
 def _command(name: str) -> list[str]:
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", library_path(name), source_path(name),
+        "-o", _partial_path(name), source_path(name),
     ]
 
 
@@ -83,6 +92,8 @@ def build_all(names=KERNEL_SOURCES, force: bool = False) -> dict[str, str]:
         logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
             failed.append(name)
+        else:
+            os.replace(_partial_path(name), library_path(name))
     if failed:
         raise RuntimeError("nvcc failed for %s:\n%s" % (
             ", ".join(failed), "\n".join(logs[n] for n in failed)))

@@ -14,7 +14,7 @@ __all__ = ["make_loss"]
 
 
 def make_loss(log_prob, logpsi, logpsi_grad_laplacian, kappa, G, L, rs, Vconst, beta,
-              clip_factor=5.0):
+              clip_factor=5.0, reduce=None):
     """Build the observable/loss evaluator.
 
     Args:
@@ -25,14 +25,21 @@ def make_loss(log_prob, logpsi, logpsi_grad_laplacian, kappa, G, L, rs, Vconst, 
       kappa, G, L, rs, Vconst, beta: Ewald/physics constants; Vconst is the
         Madelung term n*rs/L*madelung(...) added to every potential sample.
       clip_factor: total-variation clipping width for the REINFORCE weights.
+      reduce: where the batch (or microbatch chunk) is spread over several
+        ranks, the mean over those ranks of a list of 0-dim tensors
+        (``parallel.mesh.all_reduce_mean`` over their group); the clip
+        window's centres and mean deviations are then those of the whole
+        batch or chunk, as the JAX package's global-batch means are.  None:
+        this process holds the whole batch or chunk.
 
     Returns ``observable_and_lossfn(van, flow, state_indices, x,
     generator=None, v=None) -> (observables dict, classical_lossfn,
     quantum_lossfn, aux)``.  The observables are 0-dim tensors without a
-    graph.  Each loss closure takes no argument and returns the real scalars
-    (loss, mean score), differentiable in the parameters of ``van`` resp.
-    ``flow``; the clipped weights in ``aux`` ("Floc_clipped" (B,) real,
-    "Eloc_clipped" (B,) complex) enter them as constants.
+    graph, means over the walkers this process holds.  Each loss closure
+    takes no argument and returns the real scalars (loss, mean score),
+    differentiable in the parameters of ``van`` resp. ``flow``; the clipped
+    weights in ``aux`` ("Floc_clipped" (B,) real, "Eloc_clipped" (B,)
+    complex) enter them as constants.
     """
 
     def observable_and_lossfn(van, flow, state_indices, x, generator=None, v=None):
@@ -58,11 +65,15 @@ def make_loss(log_prob, logpsi, logpsi_grad_laplacian, kappa, G, L, rs, Vconst, 
                 "S2_mean": (logp_states**2).mean(),
             }
             F_mean, E_mean = observable["F_mean"], observable["E_mean"]
-
+            if reduce is not None:  # two reductions, one after the other
+                F_mean, E_mean = reduce([F_mean, E_mean])
             tvF = (Floc - F_mean).abs().mean()
+            tvE = (Eloc - E_mean).abs().mean()
+            if reduce is not None:
+                tvF, tvE = reduce([tvF, tvE])
+
             Floc_clipped = torch.clamp(
                 Floc, F_mean - clip_factor * tvF, F_mean + clip_factor * tvF)
-            tvE = (Eloc - E_mean).abs().mean()
             # clip the real part and carry the imaginary part unchanged
             Eloc_clipped = torch.complex(
                 torch.clamp(Eloc.real, E_mean - clip_factor * tvE, E_mean + clip_factor * tvE),

@@ -17,10 +17,12 @@ import torch
 
 from ..io.convert import ravel_params, unravel_like
 from ..optim.sr import HybridFisherSR, fishers_from_scores
+from ..parallel import mesh
 from ..sampling.mcmc import mcmc
 
 __all__ = ["make_sample_step", "make_accumulate_and_apply", "init_accumulators",
-           "apply_raveled_update", "DATA_KEYS", "FISHER_KEYS"]
+           "apply_raveled_update", "ranks_per_chunk", "reduce_accumulators",
+           "DATA_KEYS", "FISHER_KEYS"]
 
 DATA_KEYS = ("F_mean", "F2_mean", "E_mean", "E2_mean", "K_mean",
              "K2_mean", "V_mean", "V2_mean", "S_mean", "S2_mean")
@@ -82,6 +84,54 @@ def init_accumulators(van, flow, sr: bool = False):
     return acc
 
 
+def ranks_per_chunk(batch: int, microbatch: int | None, world_size: int) -> int:
+    """How many consecutive ranks share one REINFORCE clip window.
+
+    The JAX package cuts the *global* batch of ``batch`` walkers into chunks
+    of ``microbatch`` (``coulombgas_tpu/train/train.py:accumulate``), each
+    with its own window; rank r of ``world_size`` holds walkers
+    [r B / W, (r + 1) B / W).  Returns ``world_size`` where the window is the
+    whole batch's (no microbatch, or one at least the batch), 1 where every
+    chunk lies inside one rank's share (the microbatch divides the local
+    batch: no reduction), and microbatch / local batch where a chunk spans
+    that many ranks.  Raises ``ValueError`` for a batch the ranks cannot
+    share equally, and for chunks that straddle a rank's edge (neither the
+    microbatch nor the local batch divides the other).
+    """
+    if batch % world_size:
+        raise ValueError("batch (%d) must be divisible by the number of devices (%d)"
+                         % (batch, world_size))
+    if microbatch is None or microbatch >= batch:
+        return world_size
+    local = batch // world_size
+    if local % microbatch == 0:
+        return 1
+    if microbatch % local == 0 and batch % microbatch == 0:
+        return microbatch // local
+    if world_size == 1:
+        raise ValueError("--microbatch %d must divide the batch of %d walkers"
+                         % (microbatch, batch))
+    raise ValueError("--microbatch %d must divide the local batch of %d walkers or be a "
+                     "multiple of it that divides the batch" % (microbatch, local))
+
+
+def reduce_accumulators(acc, accept_sum: float = 0.0, leave_out=()):
+    """An epoch's accumulators and summed accept rate averaged over the
+    ranks, in one all-reduce: each rank's are means over its equal share of
+    the global batch, so the result is the global batch's, the Fisher
+    moments raw (the quantum block is centred in the solve, after this).
+    Entries named in ``leave_out`` (a stale epoch's classical Fisher, which
+    the apply does not read) stay as they are.  The identity with one rank.
+    Returns (accumulators, accept sum)."""
+    if mesh.current().world_size == 1:
+        return acc, accept_sum
+    some = {k: v for k, v in acc.items() if k not in leave_out}
+    like = acc["data"]["F_mean"]
+    accept = torch.tensor(accept_sum, dtype=like.dtype, device=like.device)
+    out = mesh.all_reduce_mean({"acc": some, "accept": accept})
+    return dict(acc, **out["acc"]), float(out["accept"])
+
+
 def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int,
                               microbatch: int | None = None,
                               sr_opt: HybridFisherSR | None = None):
@@ -99,7 +149,10 @@ def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int,
     ``microbatch`` bounds the memory of the autograd graphs: the batch is
     processed in chunks of that many walkers, one after the other, and the
     chunks' contributions averaged.  (The REINFORCE clipping window is then
-    computed per chunk rather than per batch.)
+    computed per chunk rather than per batch.)  Under data parallelism the
+    batch given to ``accumulate`` is this rank's share, and a chunk at least
+    that large is the share itself (``ranks_per_chunk``), and every rank
+    applies rank 0's SR update and diagnostics (``mesh.replicate_update``).
     """
 
     def _grad_pair(lossfn, params):
@@ -193,6 +246,7 @@ def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int,
             raveled = (ravel_params(van, grads[0]), ravel_params(flow, grads[1]))
             (upd_van, upd_flow), diag = sr_opt.update(raveled, None, fishers,
                                                       max_norm_scale=trust_scale)
+            diag, = mesh.replicate_update(upd_van, upd_flow, diag)
             apply_raveled_update(van, flow, upd_van, upd_flow)
             return dict(data, **{"diag_" + k: val for k, val in diag.items()})
         for module, grad in zip((van, flow), grads):

@@ -10,8 +10,17 @@ hand-written CUDA kernels or, with ``--slow_logp``, by ``jacfwd`` and
 ``slogdet`` with no kernel; the depth-2 closure kernels behind
 ``--mc_d2_kernel`` / ``--acc_d2_kernel``; the update tripwire
 (``--tripwire_sigma``, on by default as in ``main.py``) and the hang watchdog
-(``--hang_timeout``).  The multi-GPU flags are parsed and refused with one
-line.  Runs on the GPU unless ``--cpu`` is given.
+(``--hang_timeout``).  Runs on the GPU unless ``--cpu`` is given.
+
+Data parallelism, one process per GPU over ``torch.distributed``
+(``coulombgas_tpu_torch/parallel/mesh.py``): ``--num_devices K`` starts K
+processes on this host (0: every visible GPU; under ``--cpu``, K gloo
+processes, 0 meaning one); ``--multihost --coordinator H:P --num_processes N
+--process_id i`` makes this process rank i of N, and ``--multihost`` alone
+reads ``torchrun``'s environment.  Each rank holds ``--batch`` / W walkers of
+the global batch; the clip window, the epoch's accumulators and the accept
+rate are averaged over the ranks, rank 0's parameters and SR updates are
+broadcast, and rank 0 alone writes the run directory.
 
 The pretrained VAN is read from ``params_van.pkl`` under ``--folder``, where
 ``main.py`` writes and looks for it; where there is none, the free-fermion
@@ -27,6 +36,10 @@ Examples (the checked-in pretrainings and the n = 57 epoch-100 checkpoint):
       --epoch 110 --folder data/interacting_n57_goodseed/ --out_folder runs/n57/
   (the last resumes from runs/n57/<run directory>/epoch_000100.pkl: copy the
   checked-in checkpoint there first; --out_folder keeps data/ unwritten)
+  python main_torch.py --num_devices 2 --sr --hutchinson --folder data/interacting/ \
+      --out_folder runs/ --epoch 100
+  torchrun --nproc_per_node 4 main_torch.py --multihost --sr --hutchinson \
+      --folder data/interacting/ --out_folder runs/ --epoch 100
 """
 
 import argparse
@@ -34,6 +47,8 @@ import copy
 import hashlib
 import math
 import os
+import socket
+import sys
 import time
 from dataclasses import dataclass
 
@@ -45,7 +60,8 @@ from coulombgas_tpu_torch.io.checkpoint import (
     ckpt_filename, from_host, load_data, pretrained_model_filename, save_data,
 )
 from coulombgas_tpu_torch.io.convert import (
-    flow_from_numpy, flow_to_numpy, van_from_numpy, van_to_numpy,
+    adam_state_from_reference, flow_from_numpy, flow_to_numpy, sr_state_from_reference,
+    van_from_numpy, van_to_numpy,
 )
 from coulombgas_tpu_torch.io.logging import ObservableLog, stderr_from_moments
 from coulombgas_tpu_torch.models.ferminet import (
@@ -56,6 +72,7 @@ from coulombgas_tpu_torch.models.transformer import TransformerConfig, init_tran
 from coulombgas_tpu_torch.ops.cuda_flow_d2 import flow_d2_fits, flow_u_jac_lap_d2_cuda
 from coulombgas_tpu_torch.optim.host_sr import HostFisherCache, host_hybrid_apply
 from coulombgas_tpu_torch.optim.sr import hybrid_fisher_sr
+from coulombgas_tpu_torch.parallel import mesh
 from coulombgas_tpu_torch.physics.ewald import kpoints, madelung
 from coulombgas_tpu_torch.physics.orbitals import sp_orbitals, twist_sort
 from coulombgas_tpu_torch.sampling.autoregressive import (
@@ -65,7 +82,7 @@ from coulombgas_tpu_torch.train.loss import make_loss
 from coulombgas_tpu_torch.train.pretrain import pretrain
 from coulombgas_tpu_torch.train.train import (
     apply_raveled_update, init_accumulators, make_accumulate_and_apply,
-    make_sample_step,
+    make_sample_step, ranks_per_chunk, reduce_accumulators,
 )
 from coulombgas_tpu_torch.train.tripwire import UpdateTripwire
 from coulombgas_tpu_torch.utils.watchdog import StepWatchdog
@@ -78,7 +95,8 @@ from coulombgas_tpu_torch.wavefunction.logpsi import (
     make_logpsi_grad_laplacian, make_quantum_score,
 )
 
-SLICE_REST = "a later slice (multi-GPU)"
+# Rank r's generator seed on a fresh start; rank 0's is the one-process seed.
+SEED = 42
 
 
 def parse_args(argv=None):
@@ -144,7 +162,9 @@ def parse_args(argv=None):
     parser.add_argument("--max_norm", type=float, default=1e-3)
     parser.add_argument("--sr_solver", choices=["plain", "refined", "chol", "host64"],
                         default="plain")
-    parser.add_argument("--fisher_refresh", type=int, default=1)
+    parser.add_argument("--fisher_refresh", type=int, default=1,
+                        help="host64 only: renew the classical Fisher factor every K "
+                             "epochs (no effect under another solver or Adam)")
     parser.add_argument("--hang_timeout", type=float, default=0.0,
                         help="hard-exit with code 42 if no epoch completes for this many "
                              "seconds (0 disables; the first interval gets a 4x grace "
@@ -158,9 +178,10 @@ def parse_args(argv=None):
 
     # training
     parser.add_argument("--batch", type=int, default=2048,
-                        help="batch size per gradient-accumulation step")
+                        help="batch size per gradient-accumulation step (global)")
     parser.add_argument("--num_devices", type=int, default=0,
-                        help="devices (0 or 1: one GPU is all this script uses yet)")
+                        help="processes on this host, one per GPU (0 = all visible GPUs; "
+                             "under --cpu, gloo processes, 0 = one)")
     parser.add_argument("--acc_steps", type=int, default=4)
     parser.add_argument("--microbatch", type=int, default=0,
                         help="gradient-chunk size bounding device memory (0 = whole batch)")
@@ -172,26 +193,21 @@ def parse_args(argv=None):
     parser.add_argument("--pre_batch", type=int, default=8192)
     parser.add_argument("--pre_epoch", type=int, default=5000)
     parser.add_argument("--cpu", action="store_true", help="run on the CPU (f64)")
-    parser.add_argument("--multihost", action="store_true")
-    parser.add_argument("--coordinator", default=None)
-    parser.add_argument("--num_processes", type=int, default=None)
-    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--multihost", action="store_true",
+                        help="join a process group of one process per GPU (with "
+                             "--coordinator, or from torchrun's environment)")
+    parser.add_argument("--coordinator", default=None,
+                        help="multihost: rank 0's host:port")
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="multihost: the number of processes (with --coordinator)")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="multihost: this process's rank (with --coordinator)")
     return parser.parse_args(argv)
 
 
-def reject_unported(args):
-    """Refuse, with one line each, the flags whose code is not ported yet and
-    the requests that this run's other flags cannot meet."""
-    waits = [
-        (args.multihost or args.coordinator is not None
-         or args.num_processes is not None or args.process_id is not None,
-         "--multihost/--coordinator/--num_processes/--process_id", SLICE_REST),
-        (args.num_devices not in (0, 1), "--num_devices > 1", SLICE_REST),
-    ]
-    for hit, flag, slice_name in waits:
-        if hit:
-            raise SystemExit("main_torch.py: %s is not ported yet; it waits for %s"
-                             % (flag, slice_name))
+def reject_unmet(args):
+    """Refuse, with one line each, the requests that this run's other flags
+    cannot meet."""
     # the depth-2 closed form and its kernels: a request that cannot be met
     # fails here, nothing else stands in
     for hit, flag in ((args.flow_jac == "d2", "--flow_jac d2"),
@@ -199,10 +215,77 @@ def reject_unported(args):
                       (args.acc_d2_kernel, "--acc_d2_kernel")):
         if hit and args.depth != 2:
             raise SystemExit("main_torch.py: %s requires --depth 2 (got %d)" % (flag, args.depth))
-    if args.fisher_refresh < 1:
-        raise SystemExit("main_torch.py: --fisher_refresh must be at least 1")
-    if args.fisher_refresh > 1 and not (args.sr and args.sr_solver == "host64"):
-        raise SystemExit("main_torch.py: --fisher_refresh K > 1 needs --sr --sr_solver host64")
+    if args.sr and args.sr_solver == "host64" and args.fisher_refresh < 1:
+        # main.py would divide by it
+        raise SystemExit("main_torch.py: --fisher_refresh must be at least 1 under "
+                         "--sr --sr_solver host64")
+
+
+@dataclass(frozen=True)
+class Launch:
+    """How this invocation runs: ``world_size`` processes, started here
+    (``spawn``) or each started by the user (``--multihost``), and for the
+    latter this process's ``rank``, ``init_method`` and local GPU index."""
+
+    world_size: int
+    spawn: bool = False
+    rank: int = 0
+    init_method: str | None = None
+    local_index: int = 0
+
+
+def plan_launch(args, environ=os.environ) -> Launch:
+    """The process layout the device flags ask for, as ``main.py`` reads
+    them; every refusal happens here, before any process group is formed."""
+    if args.multihost:
+        if args.coordinator is not None:
+            if args.num_processes is None or args.process_id is None:
+                raise SystemExit("main_torch.py: --multihost --coordinator needs "
+                                 "--num_processes and --process_id")
+            world, rank = args.num_processes, args.process_id
+            init = "tcp://" + args.coordinator
+        else:
+            missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+                       if k not in environ]
+            if missing:
+                raise SystemExit("main_torch.py: --multihost without --coordinator reads "
+                                 "torchrun's environment, and %s is not set"
+                                 % "/".join(missing))
+            world, rank, init = int(environ["WORLD_SIZE"]), int(environ["RANK"]), "env://"
+        if not 0 <= rank < world:
+            raise SystemExit("main_torch.py: process %d is not one of %d" % (rank, world))
+        if args.num_devices not in (0, world):
+            raise SystemExit("main_torch.py: --multihost runs one process per GPU; "
+                             "--num_devices %d differs from its %d processes"
+                             % (args.num_devices, world))
+        cards = 1 if args.cpu else max(torch.cuda.device_count(), 1)
+        local = int(environ.get("LOCAL_RANK", rank % cards))
+        plan = Launch(world, rank=rank, init_method=init, local_index=local)
+    elif args.cpu:
+        plan = Launch(max(args.num_devices, 1), spawn=args.num_devices > 1)
+    else:
+        cards = torch.cuda.device_count()
+        world = min(args.num_devices or cards, cards) if cards else 1
+        if cards and args.num_devices > cards:
+            print("main_torch.py: --num_devices %d, but %d GPUs are visible: running on %d"
+                  % (args.num_devices, cards, world))
+        plan = Launch(world, spawn=world > 1)
+    try:
+        ranks_per_chunk(args.batch, args.microbatch or None, plan.world_size)
+    except ValueError as err:
+        raise SystemExit("main_torch.py: %s" % err)
+    return plan
+
+
+def free_port() -> int:
+    """A TCP port of this host that is free now (for rank 0 to listen on)."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_device(args, index: int) -> torch.device:
+    return torch.device("cpu") if args.cpu else torch.device("cuda", index)
 
 
 # The pretraining's optimizer, fixed as main.py fixes it: SR, plain solver.
@@ -222,10 +305,11 @@ def freefermion_path(args, twist):
     )
 
 
-def run_directory(args, twist, folder):
+def run_directory(args, twist, folder, ndevices: int = 1, make: bool = True):
     """Run directory named by the hyperparameters, byte for byte as main.py's
-    (rs in repr-style float formatting); names over 255 bytes are truncated
-    and hashed, with the full name kept in ``runname.txt``."""
+    (rs in repr-style float formatting; ``ndevices`` the world size); names
+    over 255 bytes are truncated and hashed, with the full name kept in
+    ``runname.txt``.  ``make``: create it (rank 0's job)."""
     n, dim = args.n, args.dim
     path = os.path.join(
         folder,
@@ -240,17 +324,19 @@ def run_directory(args, twist, folder):
         + ("_hutchinson" if args.hutchinson else "")
         + ("_damping_%.5f_maxnorm_%.5f" % (args.damping, args.max_norm)
            if args.sr else "_lr_%.3f" % args.lr)
-        + "_batch_%d_ndevices_%d_accsteps_%d" % (args.batch, 1, args.acc_steps),
+        + "_batch_%d_ndevices_%d_accsteps_%d" % (args.batch, ndevices, args.acc_steps),
     )
     run_name = os.path.basename(path)
     if len(run_name.encode()) > 255:
         digest = hashlib.sha1(run_name.encode()).hexdigest()[:10]
         short = run_name.encode()[: 255 - 11].decode(errors="ignore")
         path = os.path.join(os.path.dirname(path), short + "~" + digest)
+        if make:
+            os.makedirs(path, exist_ok=True)
+            with open(os.path.join(path, "runname.txt"), "w") as f:
+                f.write(run_name + "\n")
+    if make:
         os.makedirs(path, exist_ok=True)
-        with open(os.path.join(path, "runname.txt"), "w") as f:
-            f.write(run_name + "\n")
-    os.makedirs(path, exist_ok=True)
     return path
 
 
@@ -273,25 +359,45 @@ class Trainer:
     sr_state: dict | None                    # diagnostics of the last SR solve
     fisher_cache: HostFisherCache | None     # --sr_solver host64 --fisher_refresh K > 1
     generator: torch.Generator
-    x: torch.Tensor
+    x: torch.Tensor                          # this rank's walkers
     path: str
+    mesh: mesh.Mesh                          # rank and world size (1 without a group)
 
     def sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
 
-def build_trainer(args, out_folder=None) -> Trainer:
-    """Models, samplers, loss and optimizer for ``args``.
+def rank_seed(rank: int, epoch: int | None = None) -> int:
+    """Seed of rank ``rank``'s generator: ``SEED + rank`` on a fresh start
+    (rank 0's is the one-process seed), and a hash of (SEED, epoch, rank)
+    where a resume at another world size cannot continue the saved streams."""
+    if epoch is None:
+        return SEED + rank
+    digest = hashlib.sha256(b"%d:%d:%d" % (SEED, epoch, rank)).digest()
+    return int.from_bytes(digest[:8], "little") & (2**63 - 1)
 
-    The pretrained VAN is read from under ``args.folder``; the run directory
-    is made under ``out_folder`` (default: ``args.folder``).
+
+def build_trainer(args, out_folder=None) -> Trainer:
+    """Models, samplers, loss and optimizer for ``args``, on this process's
+    rank of the process group (``parallel.mesh``), or alone without one.
+
+    The pretrained VAN is read from under ``args.folder`` (by rank 0, which
+    sends it to the others); the run directory is made under ``out_folder``
+    (default: ``args.folder``) by rank 0.
     """
-    reject_unported(args)
-    device = resolve_device("cpu" if args.cpu else None)
+    reject_unmet(args)
+    grid = mesh.current()
+    world = grid.world_size
+    device = grid.device if grid.device is not None else resolve_device(
+        "cpu" if args.cpu else None)
     prec = default_precision(device)
     rdtype = prec.real
     print("torch", torch.__version__, "device:", device, "precision:", rdtype)
+    if grid.backend is not None:
+        print("rank %d of %d (%s)" % (grid.rank, world, grid.backend))
+    group_size = ranks_per_chunk(args.batch, args.microbatch or None, world)
+    local_batch = args.batch // world
 
     n, dim = args.n, args.dim
     if dim == 3:
@@ -326,7 +432,11 @@ def build_trainer(args, out_folder=None) -> Trainer:
 
     pre_path = freefermion_path(args, twist)
     pre_fname = pretrained_model_filename(pre_path)
-    if os.path.isfile(pre_fname):
+    if grid.rank != 0:
+        # rank 0's pretraining may outlast any collective's timeout
+        print("Pretrained free-fermion model: rank 0's")
+        mesh.wait_for_rank0("pretrained")
+    elif os.path.isfile(pre_fname):
         print("Load pretrained free-fermion model:", pre_fname)
         van_from_numpy(load_data(pre_fname), van)
     else:
@@ -337,11 +447,15 @@ def build_trainer(args, out_folder=None) -> Trainer:
                  PRE_LR, PRE_SR, PRE_DAMPING, PRE_MAXNORM, args.pre_batch, epoch=args.pre_epoch)
         save_data(van_to_numpy(van), pre_fname)
         print("Pretraining done; saved to", pre_fname)
+    mesh.release("pretrained")
 
     # ---- flow + logpsi ----------------------------------------------------
     flow_cfg = FermiNetConfig(args.depth, args.spsize, args.tpsize, L)
     flow = init_ferminet_params(flow_cfg, dim, cpu_gen, rdtype, device)
     print("#parameters in the flow model: %d" % sum(p.numel() for p in flow.parameters()))
+    # every rank starts from rank 0's parameters (its VAN may be the only
+    # pretrained one: no filesystem is assumed to be shared)
+    mesh.replicate([*van.state_dict().values(), *flow.state_dict().values()])
     flow_jac, flow_jac_lap = select_flow_jac(flow_cfg, args.flow_jac)
     if args.slow_logp:
         # escape hatch: jacfwd Jacobians and LU slogdets everywhere, no kernel
@@ -385,12 +499,18 @@ def build_trainer(args, out_folder=None) -> Trainer:
         optimizer = torch.optim.Adam(
             [*van.parameters(), *flow.parameters()], lr=args.lr, betas=(0.9, 0.999), eps=1e-8)
         print("Optimizer adam: lr = %.3f" % args.lr)
+    if args.fisher_refresh != 1 and not (args.sr and args.sr_solver == "host64"):
+        # main.py reads it under host64 only
+        print("--fisher_refresh %d has no effect without --sr --sr_solver host64"
+              % args.fisher_refresh)
 
-    path = run_directory(args, twist, out_folder or args.folder)
+    path = run_directory(args, twist, out_folder or args.folder, world, make=grid.rank == 0)
+    mesh.barrier()
     print("Run directory:", path)
 
     # ---- training programs --------------------------------------------------
-    sample_step = make_sample_step(sampler, logp, args.mc_steps, args.mc_stddev, L, args.batch)
+    # each rank samples its share of the global batch
+    sample_step = make_sample_step(sampler, logp, args.mc_steps, args.mc_stddev, L, local_batch)
     if args.laplacian == "analytic":
         flow_jac_lap_batched = None
         if args.acc_d2_kernel:
@@ -421,69 +541,134 @@ def build_trainer(args, out_folder=None) -> Trainer:
         logpsi_grad_laplacian = make_logpsi_grad_laplacian(
             logpsi, forloop=args.forloop_laplacian, hutchinson=args.hutchinson,
             logphi=logphi, logjacdet=logjacdet)
+    # the REINFORCE clip window of a batch or microbatch chunk spread over
+    # several ranks is reduced over exactly those ranks
+    reduce = None
+    if group_size > 1:
+        group = mesh.window_group(group_size)
+        reduce = lambda ts: mesh.all_reduce_mean(ts, group)  # noqa: E731
     observable_and_lossfn = make_loss(
-        log_prob, logpsi, logpsi_grad_laplacian, args.kappa, G, L, args.rs, Vconst, beta)
+        log_prob, logpsi, logpsi_grad_laplacian, args.kappa, G, L, args.rs, Vconst, beta,
+        reduce=reduce)
     accumulate, apply_update = make_accumulate_and_apply(
         observable_and_lossfn, args.acc_steps, microbatch=args.microbatch or None,
         sr_opt=sr_opt)
 
-    generator = torch.Generator(device=device).manual_seed(42)
-    x = L * torch.rand(args.batch, n, dim, generator=generator, dtype=rdtype, device=device)
+    # one stream per rank; this rank's walkers
+    generator = torch.Generator(device=device).manual_seed(rank_seed(grid.rank))
+    x = L * torch.rand(local_batch, n, dim, generator=generator, dtype=rdtype, device=device)
     return Trainer(args, device, L, sp_indices_twist, van, flow, sampler, logp,
                    sample_step, accumulate, apply_update, optimizer, sr_state, fisher_cache,
-                   generator, x, path)
+                   generator, x, path, grid)
 
 
 def restore(tr: Trainer) -> bool:
-    """Load the checkpoint of ``--epoch_finished`` if the run directory has it."""
-    fname = ckpt_filename(tr.args.epoch_finished, tr.path)
-    if not os.path.isfile(fname):
+    """Load the checkpoint of ``--epoch_finished`` if the run directory has
+    it (rank 0 reads it and sends it to the others).
+
+    The global walkers are cut into this world's shares; the generators
+    continue their saved streams where the checkpoint has one per rank of
+    this world size, and are seeded anew from (seed, epoch, rank) otherwise.
+    A ``main.py`` checkpoint's optimizer state carries over (optax Adam's
+    moments and step count, or the hybrid-SR state); its JAX key does not.
+    """
+    args, grid = tr.args, tr.mesh
+    fname = ckpt_filename(args.epoch_finished, tr.path)
+    ckpt = None
+    if grid.rank == 0 and os.path.isfile(fname):
+        ckpt = load_data(fname)
+    ckpt = mesh.broadcast_object(ckpt)
+    if ckpt is None:
         return False
     print("Load checkpoint:", fname)
-    ckpt = load_data(fname)
-    if ckpt["x"].shape[0] != tr.args.batch:
+    if ckpt["x"].shape[0] != args.batch:
         raise ValueError("checkpoint walker batch %d != --batch %d; resume with the "
-                         "original batch size" % (ckpt["x"].shape[0], tr.args.batch))
-    tr.x = torch.as_tensor(ckpt["x"]).to(tr.x)
+                         "original batch size" % (ckpt["x"].shape[0], args.batch))
+    tr.x = torch.as_tensor(mesh.shard_batch(ckpt["x"])).to(tr.x)
     van_from_numpy(ckpt["params_van"], tr.van)
     flow_from_numpy(ckpt["params_flow"], tr.flow)
-    # the RNG key and optimizer state of main.py do not carry over;
-    # this script keeps its own under names of its own
-    if "torch_opt_state" in ckpt:
-        if tr.args.sr:  # the diagnostics of the last SR solve
+    if "torch_opt_state" in ckpt:  # this script's own
+        if args.sr:  # the diagnostics of the last SR solve
             tr.sr_state = dict(ckpt["torch_opt_state"])
         else:
             tr.optimizer.load_state_dict(from_host(ckpt["torch_opt_state"]))
-    if "torch_generator" in ckpt:
-        tr.generator.set_state(torch.as_tensor(ckpt["torch_generator"]))
+    elif "opt_state" in ckpt:  # main.py's
+        opt = ckpt["opt_state"]
+        if args.sr and isinstance(opt, dict):
+            tr.sr_state = sr_state_from_reference(opt)
+            print("Carried over main.py's SR state:", tr.sr_state)
+        elif args.sr:  # older SR checkpoints keep an empty state
+            print("The checkpoint holds no SR state")
+        elif isinstance(opt, tuple) and opt and len(opt[0]) == 3:
+            step = adam_state_from_reference(opt, tr.van, tr.flow, tr.optimizer)
+            print("Carried over main.py's Adam moments at step %d" % step)
+        else:
+            raise ValueError("the checkpoint's optimizer state is not optax Adam's; "
+                             "resume it with --sr")
+    if "key" in ckpt:
+        print("The checkpoint's JAX random key does not carry over; "
+              "the generators keep their seeds")
+    states = ckpt.get("torch_generators")
+    if states is None and "torch_generator" in ckpt:
+        states = [ckpt["torch_generator"]]
+    if states is not None and len(states) == grid.world_size:
+        tr.generator.set_state(torch.as_tensor(states[grid.rank]))
+    elif states is not None:
+        print("The checkpoint's %d generator streams do not fit %d ranks: each rank's is "
+              "seeded from (seed, epoch %d, rank)"
+              % (len(states), grid.world_size, args.epoch_finished))
+        tr.generator.manual_seed(rank_seed(grid.rank, args.epoch_finished))
     return True
 
 
 def checkpoint(tr: Trainer, epoch: int):
-    fname = ckpt_filename(epoch, tr.path)
-    save_data({
-        "x": tr.x, "params_van": van_to_numpy(tr.van), "params_flow": flow_to_numpy(tr.flow),
+    """Rank 0 writes the global walkers (gathered in rank order), the
+    parameters, the optimizer state and every rank's generator state; every
+    rank must call it."""
+    x = mesh.host_gather(tr.x)
+    state = tr.generator.get_state()
+    states = mesh.host_gather(state[None]) if tr.mesh.world_size > 1 else None
+    if tr.mesh.rank != 0:
+        return
+    ckpt = {
+        "x": x, "params_van": van_to_numpy(tr.van), "params_flow": flow_to_numpy(tr.flow),
         "torch_opt_state": tr.sr_state if tr.args.sr else tr.optimizer.state_dict(),
-        "torch_generator": tr.generator.get_state(),
-    }, fname)
+        "torch_generator": state,
+    }
+    if states is not None:
+        ckpt["torch_generators"] = list(states)
+    fname = ckpt_filename(epoch, tr.path)
+    save_data(ckpt, fname)
     print("Save checkpoint file:", fname)
+
+
+def stale_classical(tr: Trainer, epoch: int) -> bool:
+    """Whether this epoch's host64 apply solves the classical block with the
+    cached factor (``--fisher_refresh K``, between refreshes): it then reads
+    no classical Fisher."""
+    args = tr.args
+    if not (args.sr and args.sr_solver == "host64"):
+        return False
+    refresh = (epoch - 1) % args.fisher_refresh == 0
+    return tr.fisher_cache is not None and tr.fisher_cache.ready and not refresh
 
 
 def apply_step(tr: Trainer, acc, epoch: int, seconds: dict, trust_scale: float = 1.0):
     """The epoch's update: Adam, the hybrid-SR solve in the working precision
     (``--sr_solver plain | refined | chol``), or the float64 apply
     (``host64``; with ``--fisher_refresh K`` the classical factor is renewed
-    every K epochs).  Returns (observables, SR diagnostics) as Python floats
-    and adds the solve phases to ``seconds``."""
+    every K epochs).  Every SR solve's update and diagnostics are rank 0's.
+    Returns (observables, SR diagnostics) as Python floats and adds the solve
+    phases to ``seconds``."""
     args = tr.args
     t0 = time.time()
     if args.sr and args.sr_solver == "host64":
-        refresh = (epoch - 1) % args.fisher_refresh == 0
-        stale = tr.fisher_cache is not None and tr.fisher_cache.ready and not refresh
+        stale = stale_classical(tr, epoch)
         view = {k: v for k, v in acc.items() if k != "classical_fisher"} if stale else acc
         upd_van, upd_flow, d, diag = host_hybrid_apply(
             view, args.acc_steps, args.damping, args.max_norm * trust_scale,
             cache=tr.fisher_cache, van=tr.van, flow=tr.flow)
+        d, diag = mesh.replicate_update(upd_van, upd_flow, d, diag)
         tr.sync()
         seconds["solve64"] = time.time() - t0
         t1 = time.time()
@@ -524,10 +709,13 @@ def restore_state(tr: Trainer, state):
 
 
 def train(args, out_folder=None) -> dict:
-    """Run ``args.epoch - args.epoch_finished`` epochs.  Returns the trainer,
-    one record per logged epoch, the epochs the tripwire reverted and
-    whether the parameters moved."""
+    """Run ``args.epoch - args.epoch_finished`` epochs on this process's rank
+    (alone without a process group).  Returns the trainer, one record per
+    logged epoch, the epochs the tripwire reverted and whether the
+    parameters moved.  Every decision that ends or branches the loop is
+    taken from values that are equal on every rank."""
     tr = build_trainer(args, out_folder)
+    writer = tr.mesh.rank == 0
     if not restore(tr):
         print("No checkpoint found. Starting from scratch; thermalizing...")
         for i in range(args.mc_therm):
@@ -538,8 +726,9 @@ def train(args, out_folder=None) -> dict:
                   % (i + 1, float(accept_rate), time.time() - t0))
 
     before = [p.detach().clone() for p in [*tr.van.parameters(), *tr.flow.parameters()]]
-    log = ObservableLog(tr.path, resume=args.epoch_finished > 0)
-    diag_log = open(os.path.join(tr.path, "sr_diag.txt"), "a", buffering=1) if args.sr else None
+    log = ObservableLog(tr.path, resume=args.epoch_finished > 0) if writer else None
+    diag_log = (open(os.path.join(tr.path, "sr_diag.txt"), "a", buffering=1)
+                if args.sr and writer else None)
     total_batch = args.batch * args.acc_steps
     rs2 = args.rs**2
     records, reverted_epochs = [], []
@@ -553,10 +742,6 @@ def train(args, out_folder=None) -> dict:
     ).start()
     try:
         for i in range(args.epoch_finished + 1, args.epoch + 1):
-            # the heartbeat is at the TOP of the loop: every phase of the
-            # previous epoch ended in a device synchronize, so it certifies
-            # that the device answered
-            watchdog.beat()
             tripwire.snapshot(snapshot_state(tr))
             acc = init_accumulators(tr.van, tr.flow, sr=args.sr)
             accept_sum = 0.0
@@ -572,6 +757,9 @@ def train(args, out_folder=None) -> dict:
                 acc = tr.accumulate(tr.van, tr.flow, state_indices, tr.x, tr.generator, acc)
                 tr.sync()
                 seconds["accumulate"] += time.time() - t0
+            # one all-reduce makes every rank's accumulators the global batch's
+            acc, accept_sum = reduce_accumulators(
+                acc, accept_sum, leave_out=("classical_fisher",) if stale_classical(tr, i) else ())
             d, diag = apply_step(tr, acc, i, seconds, tripwire.trust_scale)
             accept = accept_sum / args.acc_steps
 
@@ -612,6 +800,7 @@ def train(args, out_folder=None) -> dict:
                 # they stay out of data.txt (the event is in sr_diag.txt)
                 if args.sr:
                     tr.sr_state = diag
+                if diag_log is not None:
                     diag_log.write("%6d  %.6e  %.4f  %.6e  %.4f\n" % (
                         i, diag["gnorm_van"], diag["scale_van"], diag["gnorm_flow"],
                         diag["scale_flow"]))
@@ -622,8 +811,9 @@ def train(args, out_folder=None) -> dict:
                                                 total_batch))
 
                 (F, F_std), (E, E_std), (K, K_std), (V, V_std), (S, S_std) = map(col, "FEKVS")
-                log.write_train(i, F / rs2, F_std / rs2, E / rs2, E_std / rs2, K / rs2,
-                                K_std / rs2, V / rs2, V_std / rs2, S, S_std, accept)
+                if log is not None:
+                    log.write_train(i, F / rs2, F_std / rs2, E / rs2, E_std / rs2, K / rs2,
+                                    K_std / rs2, V / rs2, V_std / rs2, S, S_std, accept)
                 records.append(dict({"epoch": i, "F": F / rs2, "E": E / rs2, "K": K / rs2,
                                      "V": V / rs2, "S": S, "accept_rate": accept,
                                      "sample_s": seconds["sample"],
@@ -631,9 +821,15 @@ def train(args, out_folder=None) -> dict:
                                      "apply_s": seconds["apply"]}, **diag))
             if i % args.ckpt_every == 0:
                 checkpoint(tr, i)
+            # the heartbeat ends the epoch body: every phase of it ended in a
+            # device synchronize, so it certifies that the device answered,
+            # and the first epoch (kernel builds, first launches) runs under
+            # the watchdog's first-interval grace
+            watchdog.beat()
     finally:
         watchdog.stop()
-        log.close()
+        if log is not None:
+            log.close()
         if diag_log is not None:
             diag_log.close()
 
@@ -647,9 +843,40 @@ def train(args, out_folder=None) -> dict:
             "trust_scale": tripwire.trust_scale, "params_changed": changed}
 
 
+def _rank_main(rank: int, args, world_size: int, port: int):
+    """One spawned rank of ``--num_devices K``: rank ``rank`` on GPU
+    ``rank`` (or on the CPU under ``--cpu``)."""
+    # the ranks share the launcher's stdout: one write a line keeps their
+    # lines whole (a pipe takes a write of up to 4 KiB at once)
+    sys.stdout.reconfigure(line_buffering=True)
+    mesh.make_mesh("tcp://localhost:%d" % port, rank, world_size, _rank_device(args, rank))
+    try:
+        train(args, args.out_folder)
+    finally:
+        mesh.destroy()
+
+
 def main(argv=None):
     args = parse_args(argv)
-    train(args, args.out_folder)
+    reject_unmet(args)
+    plan = plan_launch(args)
+    if plan.spawn:
+        import torch.multiprocessing as mp
+
+        try:
+            mp.start_processes(_rank_main, args=(args, plan.world_size, free_port()),
+                               nprocs=plan.world_size, start_method="spawn")
+        except mp.ProcessExitedException as err:  # e.g. a rank's watchdog (42)
+            raise SystemExit(err.exit_code)
+    elif args.multihost:
+        mesh.make_mesh(plan.init_method, plan.rank, plan.world_size,
+                       _rank_device(args, plan.local_index))
+        try:
+            train(args, args.out_folder)
+        finally:
+            mesh.destroy()
+    else:
+        train(args, args.out_folder)
 
 
 if __name__ == "__main__":

@@ -79,7 +79,8 @@ def test_conversion_refuses_a_wrong_shape_or_name():
 def test_reference_checkpoint_loads_into_the_port():
     """An ``epoch_*.pkl`` written by main.py (f32 numpy pytrees)."""
     ckpt = convert.load_reference_checkpoint(N13[0])
-    assert set(ckpt) == {"x", "params_van", "params_flow"}  # key, opt_state dropped
+    # the JAX key is dropped; main.py's optimizer state is carried over
+    assert set(ckpt) == {"x", "params_van", "params_flow", "opt_state"}
     n, dim, L = 13, 2, float(np.sqrt(np.pi * 13))
     sp = orbitals(dim, 25)
     van = convert.van_from_numpy(

@@ -119,7 +119,7 @@ def test_cli_runs_newly_accepted_flags(folder, tmp_path, capsys, name):
 
     flags = FLAG_SETS[name]
     args = _args(folder, flags)
-    main_torch.reject_unported(args)  # nothing of these is refused any more
+    main_torch.reject_unmet(args)  # nothing of these is refused any more
     run = main_torch.train(args, out_folder=str(tmp_path))
     assert len(run["epochs"]) == 2 and run["params_changed"]
     path = run["trainer"].path
@@ -143,7 +143,7 @@ def test_cli_kernel_flags_beside_the_generic_paths(folder, tmp_path, capsys, fla
     import main_torch
 
     args = _args(folder, flags)
-    main_torch.reject_unported(args)
+    main_torch.reject_unmet(args)
     if said is None:
         with pytest.raises(SystemExit, match="not --slow_logp"):
             main_torch.build_trainer(args, out_folder=str(tmp_path))

@@ -88,14 +88,30 @@ def test_cli_host64_refreshes_the_classical_factor_every_k_epochs(tmp_path):
     (["--mc_d2_kernel"], "--mc_d2_kernel requires --depth 2"),
     (["--acc_d2_kernel"], "--acc_d2_kernel requires --depth 2"),
     (["--flow_jac", "d2"], "--flow_jac d2 requires --depth 2"),
-    (["--sr", "--fisher_refresh", "4"], "--fisher_refresh K > 1 needs --sr --sr_solver host64"),
-    (["--fisher_refresh", "0"], "--fisher_refresh must be at least 1"),
-    (["--sr", "--num_devices", "2"], "--num_devices > 1 is not ported yet"),
+    # accepted as main.py accepts them (it reads --fisher_refresh under host64
+    # only), with one line saying so; two ranks of SR under gloo
+    (["--sr", "--fisher_refresh", "4"], None),
+    (["--fisher_refresh", "0"], None),
+    (["--sr", "--num_devices", "2"], None),
+    (["--sr", "--sr_solver", "host64", "--fisher_refresh", "0"],
+     "--fisher_refresh must be at least 1 under --sr --sr_solver host64"),
 ])
-def test_cli_exits_with_one_line_where_a_flag_cannot_be_met(flags, message):
+def test_cli_exits_with_one_line_where_a_flag_cannot_be_met(flags, message, tmp_path, capsys):
     args = main_torch.parse_args(["--cpu", "--hutchinson", "--depth", "3"] + flags)
+    if message is None:
+        main_torch.reject_unmet(args)
+        if "--fisher_refresh" not in flags:
+            assert main_torch.plan_launch(args).world_size == 2
+            return
+        # the run builds and says, in one line, that the flag changes nothing
+        capsys.readouterr()
+        main_torch.build_trainer(_args(tmp_path, *flags))
+        k = flags[flags.index("--fisher_refresh") + 1]
+        said = [ln for ln in capsys.readouterr().out.splitlines() if "--fisher_refresh" in ln]
+        assert said == ["--fisher_refresh %s has no effect without --sr --sr_solver host64" % k]
+        return
     with pytest.raises(SystemExit) as err:
-        main_torch.reject_unported(args)
+        main_torch.reject_unmet(args)
     assert message in str(err.value) and "\n" not in str(err.value)
 
 

@@ -218,18 +218,31 @@ def test_cli_trains_and_resumes_on_the_checked_in_pretraining(tmp_path):
     (["--multihost", "--process_id", "1"], "multi-GPU"), (["--num_devices", "4"], "multi-GPU"),
 ])
 def test_cli_refuses_flags_of_later_slices(flags, word):
-    """Only the multi-GPU flags wait for a later slice; the generic-AD engines'
-    flags (``word`` None) are accepted, with or without --hutchinson."""
+    """No flag waits for a later slice any more: the generic-AD engines'
+    flags (``word`` None) are accepted, with or without --hutchinson, and so
+    are the multi-GPU flags, which lay out processes as main.py reads them:
+    ``--num_devices K`` spawns K ranks (gloo under --cpu), ``--multihost``
+    makes this process a rank (here from torchrun's environment), and
+    ``--coordinator`` / ``--num_processes`` / ``--process_id`` without
+    ``--multihost`` change nothing."""
     import main_torch
 
+    torchrun = {"RANK": "1", "WORLD_SIZE": "4", "LOCAL_RANK": "1",
+                "MASTER_ADDR": "localhost", "MASTER_PORT": "29500"}
     for base in (["--cpu", "--hutchinson"], ["--cpu"]):
         args = main_torch.parse_args(base + flags)
+        main_torch.reject_unmet(args)
         if word is None:
-            main_torch.reject_unported(args)
             continue
-        with pytest.raises(SystemExit) as err:
-            main_torch.reject_unported(args)
-        assert "not ported yet" in str(err.value) and word in str(err.value)
+        plan = main_torch.plan_launch(args, environ=torchrun)
+        if "--multihost" in flags:
+            assert (plan.world_size, plan.rank, plan.init_method, plan.spawn) == (
+                4, 1, "env://", False)
+        elif "--num_devices" in flags:
+            k = int(flags[flags.index("--num_devices") + 1])
+            assert (plan.world_size, plan.spawn) == (k, True)
+        else:
+            assert (plan.world_size, plan.spawn) == (1, False)
 
 
 def test_cli_needs_hutchinson_a_pretrained_van_and_a_device(tmp_path, capsys):
