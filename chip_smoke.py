@@ -76,8 +76,15 @@ exit code:
            accumulate and apply on one shared global batch in f32 (the
            walkers of (a)'s checkpoint) in two ranks against one process:
            observables, reduced accumulators and parameters within the
-           tolerances below; the backend, world size and seconds by phase.
-           ``python3 chip_smoke.py --dist_only`` runs this phase alone.
+           tolerances below; (e) a microbatch chunk straddling the ranks'
+           shares (--batch 1536 --microbatch 512: shares of 768, chunk 1
+           across both), two ranks as (b) with finite rows and equal
+           checksums, and (c)'s step with that batch and microbatch against
+           one process; (f) two ranks of --multihost with no --coordinator,
+           the layout read from a SLURM job's environment: (b)'s rows and
+           checksum, bit for bit; the backend, world size and seconds by
+           phase.  ``python3 chip_smoke.py --dist_only`` runs this phase
+           alone.
 
 The line before the last lists every kernel with its launches on the main
 path, its error, its time and its bound; K1, K5 and K6 also with the time
@@ -1570,12 +1577,14 @@ DIST_LINE = ["--folder", "data/interacting/", "--sr", "--hutchinson", "--mc_ther
              "--acc_steps", "1", "--epoch", "2", "--ckpt_every", "2", "--num_devices", "1"]
 
 
-def _run_all(cmds, timeout=600):
-    """Start every command at once; wait for all; return (exit codes,
-    outputs, seconds).  Every process started here is stopped here."""
+def _run_all(cmds, timeout=600, envs=None):
+    """Start every command at once (command i with ``envs[i]`` added to its
+    environment where given); wait for all; return (exit codes, outputs,
+    seconds).  Every process started here is stopped here."""
     t0 = time.time()
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=dict(os.environ, **(envs[i] if envs else {})))
+             for i, c in enumerate(cmds)]
     try:
         outs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
@@ -1634,8 +1643,9 @@ def dist_step(argv, ckpt, si, v, out_folder):
     state = load_data(ckpt)
     van_from_numpy(state["params_van"], tr.van)
     flow_from_numpy(state["params_flow"], tr.flow)
+    # the checkpoint's first len(si) walkers are the global batch
     x, si, v = (torch.as_tensor(mesh.shard_batch(a)).to(tr.device)
-                for a in (state["x"], si, v))
+                for a in (state["x"][:len(si)], si, v))
     acc = tr.accumulate(tr.van, tr.flow, si.long(), x.to(torch.float32), None,
                         init_accumulators(tr.van, tr.flow, sr=args.sr), v=v.to(torch.float32))
     acc, _ = reduce_accumulators(acc)
@@ -1711,16 +1721,67 @@ def compare_dist_step(ranks, one, names) -> dict:
             "tolerances": [TOL_DIST_OBS, TOL_DIST_ACC, TOL_DIST_PARAM, TOL_DIST_UNDETERMINED]}
 
 
+def _free_slurm_job() -> int:
+    """A SLURM job id whose coordinator port (61440 + id mod 4096, as
+    ``main_torch.cluster_environment`` and JAX derive it) is free now."""
+    import socket
+
+    for job in range(4096):
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", 61440 + job))
+            except OSError:
+                continue
+        return job
+    raise RuntimeError("no free port in 61440-65535")
+
+
+def _shared_batch_step(tmp, name, argv, ckpt, si, v, names):
+    """(c)'s check for ``argv``: one accumulate and apply on one shared
+    global batch in two ranks against one process; returns the comparison
+    and the seconds of both."""
+    import pickle
+
+    import main_torch
+
+    t0 = time.time()
+    one = dist_step(argv, ckpt, si, v, os.path.join(tmp, name + "_one"))
+    seconds = {"one_process_step": time.time() - t0}
+    job = os.path.join(tmp, name + "_job.pkl")
+    with open(job, "wb") as f:
+        pickle.dump({"argv": argv, "ckpt": ckpt, "si": si, "v": v,
+                     "out": os.path.join(tmp, name + "_ranks")}, f)
+    port = main_torch.free_port()
+    rcs, outs, seconds["two_rank_step"] = _run_all([
+        [sys.executable, "chip_smoke.py", "--dist_rank", str(r), "2", str(port), job]
+        for r in range(2)])
+    _checked(rcs, outs, "dist %s" % name)
+    with open(job + ".out", "rb") as f:
+        ranks = pickle.load(f)
+    out = compare_dist_step(ranks, one, names)
+    out["backend"], out["seconds"] = ranks["backend"], seconds
+    obs, acc = out["observables_max_rel_err"], out["accumulators_rel_err"]
+    param = out["params_max_abs_err_where_gradient_determined"]
+    check(obs <= TOL_DIST_OBS, "dist %s: observables differ by %g" % (name, obs))
+    check(max(acc.values()) <= TOL_DIST_ACC, "dist %s: accumulators differ: %s" % (name, acc))
+    check(param <= TOL_DIST_PARAM, "dist %s: parameters differ by %g" % (name, param))
+    undetermined, entries = out["params_undetermined"]
+    check(undetermined <= TOL_DIST_UNDETERMINED * entries,
+          "dist %s: the gradient is undetermined in %d of %d entries"
+          % (name, undetermined, entries))
+    return out
+
+
 def phase_dist():
     """Data parallelism through main_torch.py's entry points: a world of one
     under NCCL against no group, two ranks, four ranks in sub-groups of two
-    where the machine has four cards, and one shared-batch step in two ranks
-    against one process."""
-    import pickle
+    where the machine has four cards, one shared-batch step in two ranks
+    against one process, a microbatch chunk straddling the two ranks'
+    shares, and two ranks that read their layout from a SLURM job's
+    environment."""
     import tempfile
 
     import main_torch
-    from coulombgas_tpu_torch.io.convert import flatten_tree
 
     torch.cuda.empty_cache()
     cards = torch.cuda.device_count()
@@ -1760,6 +1821,7 @@ def phase_dist():
                     for r in range(2)]
         rcs, outs, seconds["two_ranks"] = _run_all(cmds)
         _checked(rcs, outs, "dist (b)")
+        outs_b = outs
         text = "\n".join(outs)
         backend = "nccl" if "rank 1 of 2 (nccl)" in text else "gloo"
         check("rank 0 of 2 (%s)" % backend in text and "rank 1 of 2 (%s)" % backend in text,
@@ -1803,34 +1865,64 @@ def phase_dist():
         v = torch.randn(BATCH, N, DIM, generator=gen, device=DEV).cpu().numpy()
         names = [[k for k, _ in m.named_parameters()] for m in (tr.van, tr.flow)]
         del tr
-        t0 = time.time()
-        one = dist_step(argv, ckpt, si, v, os.path.join(tmp, "one"))
-        seconds["one_process_step"] = time.time() - t0
-        job = os.path.join(tmp, "job.pkl")
-        with open(job, "wb") as f:
-            pickle.dump({"argv": argv, "ckpt": ckpt, "si": si, "v": v,
-                         "out": os.path.join(tmp, "ranks")}, f)
-        port = main_torch.free_port()
-        rcs, outs, seconds["two_rank_step"] = _run_all([
-            [sys.executable, "chip_smoke.py", "--dist_rank", str(r), "2", str(port), job]
-            for r in range(2)])
-        _checked(rcs, outs, "dist (c)")
-        with open(job + ".out", "rb") as f:
-            ranks = pickle.load(f)
-        out = compare_dist_step(ranks, one, names)
+        out = _shared_batch_step(tmp, "(c)", argv, ckpt, si, v, names)
+        seconds.update(out.pop("seconds"))
         emit(dict({"phase": "dist", "case": "shared_batch_step", "optimizer": "adam",
-                   "backend": ranks["backend"], "world_size": 2, "dtype": "float32",
+                   "world_size": 2, "dtype": "float32",
                    "seconds": {k: seconds[k] for k in ("one_process_step", "two_rank_step")}},
                   **out))
-        obs, acc = out["observables_max_rel_err"], out["accumulators_rel_err"]
-        param = out["params_max_abs_err_where_gradient_determined"]
-        check(obs <= TOL_DIST_OBS, "dist (c): observables differ by %g" % obs)
-        check(max(acc.values()) <= TOL_DIST_ACC, "dist (c): accumulators differ: %s" % acc)
-        check(param <= TOL_DIST_PARAM, "dist (c): parameters differ by %g" % param)
-        undetermined, entries = out["params_undetermined"]
-        check(undetermined <= TOL_DIST_UNDETERMINED * entries,
-              "dist (c): the gradient is undetermined in %d of %d entries"
-              % (undetermined, entries))
+
+        # (e) a microbatch chunk straddling the ranks' shares: batch 1536 in
+        # shares of 768, chunks of 512, chunk 1 = walkers 512-1023 of both;
+        # and (f) two ranks reading their layout from a SLURM job's
+        # environment, no --coordinator: (b)'s layout, so (b)'s rows
+        straddle, slurm = os.path.join(tmp, "straddle"), os.path.join(tmp, "slurm")
+        flags_e = ["--batch", "1536", "--microbatch", "512"]
+        if cards >= 2:
+            cmds = [me + ["--out_folder", straddle, "--num_devices", "2", *flags_e]]
+            envs = [{}]
+        else:
+            port = main_torch.free_port()
+            cmds = [me + ["--out_folder", straddle, "--num_devices", "2", *flags_e,
+                          "--multihost", "--coordinator", "localhost:%d" % port,
+                          "--num_processes", "2", "--process_id", str(r)] for r in range(2)]
+            envs = [{}, {}]
+        job = str(_free_slurm_job())
+        cmds += [me + ["--out_folder", slurm, "--num_devices", "2", "--multihost"]
+                 for r in range(2)]
+        envs += [{"SLURM_JOB_ID": job, "SLURM_STEP_NODELIST": "localhost", "SLURM_NTASKS": "2",
+                  "SLURM_PROCID": str(r), "SLURM_LOCALID": str(r)} for r in range(2)]
+        rcs, outs, seconds["straddle_and_slurm"] = _run_all(cmds, envs=envs)
+        n_e = len(cmds) - 2
+        _checked(rcs[:n_e], outs[:n_e], "dist (e)")
+        _checked(rcs[n_e:], outs[n_e:], "dist (f)")
+        name_e, rows_e = _rows(straddle)
+        data = np.array([r.split() for r in rows_e], float)
+        _same_checksums(outs[:n_e], 2, "dist (e)")
+        check(name_e.endswith("_batch_1536_ndevices_2_accsteps_1") and data.shape == (2, 12)
+              and np.isfinite(data).all() and ((data[:, 11] > 0.05) & (data[:, 11] < 0.95)).all(),
+              "dist (e): run directory %s, rows %s" % (name_e, rows_e))
+        emit({"phase": "dist", "case": "straddling_chunk", "backend": backend, "world_size": 2,
+              "batch": 1536, "microbatch": 512, "rows": rows_e, "checksums_equal": True,
+              "seconds": seconds["straddle_and_slurm"]})
+        name_f, rows_f = _rows(slurm)
+        text = "\n".join(outs[n_e:])
+        sum_f = _same_checksums(outs[n_e:], 2, "dist (f)")
+        check("rank 1 of 2 (%s)" % backend in text and name_f == name_b and rows_f == rows_b
+              and sum_f == _checksums(outs_b)[0],
+              "dist (f): the SLURM job's run %s, rows %s differ from (b)'s %s, %s"
+              % (name_f, rows_f, name_b, rows_b))
+        emit({"phase": "dist", "case": "slurm_environment", "backend": backend,
+              "world_size": 2, "rows_equal_to_two_ranks": True, "checksum": sum_f,
+              "seconds": seconds["straddle_and_slurm"]})
+
+        # (e)'s shared-batch step: the chunks of 512 of the first 1536
+        # walkers, in two ranks against one process with that microbatch
+        out = _shared_batch_step(tmp, "(e)", argv + flags_e, ckpt, si[:1536], v[:1536], names)
+        seconds.update({k + "_straddling": t for k, t in out.pop("seconds").items()})
+        emit(dict({"phase": "dist", "case": "shared_batch_step_straddling_chunk",
+                   "optimizer": "adam", "world_size": 2, "dtype": "float32", "batch": 1536,
+                   "microbatch": 512}, **out))
     emit({"phase": "dist", "seconds_by_phase": seconds})
 
 

@@ -34,9 +34,13 @@ JAX package                            here
                                        update and diagnostics
 ``host_gather(pytree)``                ``host_gather(x)``: axis 0 of every
                                        rank, in rank order, as numpy on rank 0
-(XLA's all-reduces)                    ``all_reduce_mean(tree, group)``: the
+(XLA's all-reduces)                    ``all_reduce_mean(tree)``: the
                                        mean over the ranks of a list or dict
-                                       of tensors, flattened into one buffer
+                                       of tensors, flattened into one buffer;
+                                       ``window_mean``: a microbatch chunk's
+                                       means over the ranks holding it,
+                                       weighted by their walkers, in the
+                                       groups of ``window_groups``
 =====================================  ======================================
 
 With no process group every function is the identity and the world size is
@@ -55,7 +59,7 @@ import torch.distributed as dist
 
 __all__ = ["Mesh", "make_mesh", "current", "destroy", "barrier", "shard_batch",
            "replicate", "replicate_update", "host_gather", "all_reduce_mean",
-           "broadcast_object", "window_group", "wait_for_rank0", "release",
+           "broadcast_object", "window_groups", "window_mean", "wait_for_rank0", "release",
            "TIMEOUT"]
 
 # A rank may wait this long in a collective or for the rendezvous store.  A
@@ -153,12 +157,6 @@ def barrier() -> None:
             dist.barrier()
 
 
-def _group_size(group) -> int:
-    if _MESH.backend is None:
-        return 1
-    return dist.get_world_size(group)
-
-
 def _to_comm(t: torch.Tensor) -> torch.Tensor:
     """``t`` on the device the backend works on: host tensors for gloo (its
     CUDA support covers some collectives only), the rank's card for NCCL."""
@@ -197,18 +195,17 @@ def _rebuild(tree, it):
     return type(tree)(_rebuild(v, it) for v in tree)
 
 
-def all_reduce_mean(tree, group=None):
-    """The mean over the ranks of ``group`` (default: all) of every tensor in
-    ``tree`` (a tensor, or lists, tuples and dicts of them, of one dtype),
-    reduced as one flat buffer.  Returns new tensors in the same structure;
-    the inputs are left as they were.  The identity where the group has one
-    rank."""
-    size = _group_size(group)
+def all_reduce_mean(tree):
+    """The mean over the ranks of every tensor in ``tree`` (a tensor, or
+    lists, tuples and dicts of them, of one dtype), reduced as one flat
+    buffer.  Returns new tensors in the same structure; the inputs are left
+    as they were.  The identity with one rank."""
+    size = _MESH.world_size
     if size == 1:
         return tree
     leaves = _leaves(tree)
     buf = _to_comm(torch.cat([leaf.detach().reshape(-1) for leaf in leaves]))
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
     buf = (buf / size).to(leaves[0].device)
     out, at = [], 0
     for leaf in leaves:
@@ -281,12 +278,38 @@ def broadcast_object(obj, src: int = 0):
     return box[0]
 
 
-def window_group(ranks_per_chunk: int):
-    """The process group of the ranks that share this rank's microbatch
-    chunk: the default group where the chunk spans all ranks, a group of
-    ``ranks_per_chunk`` consecutive ranks otherwise (every rank must call
-    this, with the same argument)."""
-    if ranks_per_chunk == _MESH.world_size:
-        return None
-    group, _ = dist.new_subgroups(group_size=ranks_per_chunk)
-    return group
+def window_groups(layout) -> list:
+    """This rank's pieces of the microbatch chunks of ``layout``
+    (``train.train.chunk_layout``), in chunk order, as ``(start, stop,
+    group)``: ``start:stop`` within this rank's share, ``group`` None where
+    this rank holds the whole chunk, else the process group of the ranks
+    that hold it (the default group where that is every rank).  The groups
+    of different chunks may overlap, so every rank creates every group of
+    several ranks, in chunk order: every rank must call this, with the same
+    layout, before the first collective over any of them."""
+    groups, out = {}, []
+    for chunk in layout:
+        ranks = tuple(r for r, _, _ in chunk)
+        group = None
+        if len(ranks) > 1:
+            if ranks not in groups:
+                groups[ranks] = (dist.group.WORLD if len(ranks) == _MESH.world_size
+                                 else dist.new_group(list(ranks)))
+            group = groups[ranks]
+        out += [(start, stop, group) for r, start, stop in chunk if r == _MESH.rank]
+    return out
+
+
+def window_mean(ts, group, count: int) -> list:
+    """Means over every walker of a chunk held by the ranks of ``group``, of
+    0-dim tensors ``ts`` that each rank gives as means over its ``count``
+    walkers of it: one all-reduce of the count-weighted sums and the counts,
+    so that unequal pieces weigh as their walkers do.  Every rank of the
+    group gets the same bits."""
+    like = ts[0]
+    buf = torch.stack([t.detach() * count for t in ts]
+                      + [torch.full((), float(count), dtype=like.dtype, device=like.device)])
+    buf = _to_comm(buf)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    buf = buf.to(like.device)
+    return list((buf[:-1] / buf[-1]).unbind())

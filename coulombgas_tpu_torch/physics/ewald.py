@@ -13,7 +13,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["kpoints", "madelung", "ewald_sum", "potential_energy"]
+__all__ = ["kpoints", "madelung", "ewald_sum", "ewald_sum_pairs", "potential_energy"]
 
 
 def kpoints(dim: int, Gmax: int) -> np.ndarray:
@@ -77,6 +77,29 @@ def ewald_sum(x, kappa, G):
     S2 = torch.cos(theta).sum(dim=-2) ** 2 + torch.sin(theta).sum(dim=-2) ** 2
     npairs = n * (n - 1) // 2
     V_long = (g_k * (S2 - n)).sum(dim=-1) / 2 + g_0 * npairs
+    return V_short + V_long
+
+
+def ewald_sum_pairs(x, kappa, G):
+    """Dense O(n^2 NG) pair-sum form of ``ewald_sum``'s reciprocal part:
+    sum_{i<j} cos(2 pi G . r_ij) summed over the pairs directly.  The same
+    number as ``ewald_sum`` (the differential-test oracle of the structure
+    factor), batched the same way: x (..., n, dim) -> (...,)."""
+    n, dim = x.shape[-2:]
+    G = torch.as_tensor(np.asarray(G), dtype=x.dtype, device=x.device)
+    rij = x[..., :, None, :] - x[..., None, :, :]
+    rij = rij - torch.round(rij)
+    iu = torch.triu(torch.ones(n, n, dtype=torch.bool, device=x.device), diagonal=1)
+    d2 = (rij**2).sum(dim=-1)
+    d = torch.sqrt(torch.where(iu, d2, torch.ones_like(d2)))
+    V_short = torch.where(iu, torch.special.erfc(kappa * d) / d,
+                          torch.zeros_like(d)).sum(dim=(-2, -1))
+
+    g_k, g_0 = _gk_g0(dim, kappa, torch.linalg.vector_norm(G, dim=-1))
+    phases = 2 * math.pi * torch.einsum("gd,...ijd->...gij", G, rij)
+    pair_cos = torch.where(iu, torch.cos(phases), torch.zeros_like(phases)).sum(dim=(-2, -1))
+    npairs = n * (n - 1) // 2
+    V_long = (g_k * pair_cos).sum(dim=-1) + g_0 * npairs
     return V_short + V_long
 
 

@@ -8,13 +8,14 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import mesh
 from ..physics.ewald import potential_energy
 
 __all__ = ["make_loss"]
 
 
 def make_loss(log_prob, logpsi, logpsi_grad_laplacian, kappa, G, L, rs, Vconst, beta,
-              clip_factor=5.0, reduce=None):
+              clip_factor=5.0):
     """Build the observable/loss evaluator.
 
     Args:
@@ -25,16 +26,15 @@ def make_loss(log_prob, logpsi, logpsi_grad_laplacian, kappa, G, L, rs, Vconst, 
       kappa, G, L, rs, Vconst, beta: Ewald/physics constants; Vconst is the
         Madelung term n*rs/L*madelung(...) added to every potential sample.
       clip_factor: total-variation clipping width for the REINFORCE weights.
-      reduce: where the batch (or microbatch chunk) is spread over several
-        ranks, the mean over those ranks of a list of 0-dim tensors
-        (``parallel.mesh.all_reduce_mean`` over their group); the clip
-        window's centres and mean deviations are then those of the whole
-        batch or chunk, as the JAX package's global-batch means are.  None:
-        this process holds the whole batch or chunk.
 
     Returns ``observable_and_lossfn(van, flow, state_indices, x,
-    generator=None, v=None) -> (observables dict, classical_lossfn,
-    quantum_lossfn, aux)``.  The observables are 0-dim tensors without a
+    generator=None, v=None, group=None) -> (observables dict,
+    classical_lossfn, quantum_lossfn, aux)``; ``group`` is the process group
+    of the ranks that share this chunk, None where this process holds all
+    of it (nothing is reduced).  With a group, the clip window's centres and
+    mean deviations are the chunk's, as the JAX package's global-batch means
+    are: ``parallel.mesh.window_mean`` weighs each rank's means by its
+    walkers.  The observables are 0-dim tensors without a
     graph, means over the walkers this process holds.  Each loss closure
     takes no argument and returns the real scalars (loss, mean score),
     differentiable in the parameters of ``van`` resp. ``flow``; the clipped
@@ -42,7 +42,7 @@ def make_loss(log_prob, logpsi, logpsi_grad_laplacian, kappa, G, L, rs, Vconst, 
     complex) enter them as constants.
     """
 
-    def observable_and_lossfn(van, flow, state_indices, x, generator=None, v=None):
+    def observable_and_lossfn(van, flow, state_indices, x, generator=None, v=None, group=None):
         with torch.no_grad():
             logp_states = log_prob(van, state_indices)
             grad, laplacian = logpsi_grad_laplacian(x, flow, state_indices, generator, v)
@@ -65,12 +65,13 @@ def make_loss(log_prob, logpsi, logpsi_grad_laplacian, kappa, G, L, rs, Vconst, 
                 "S2_mean": (logp_states**2).mean(),
             }
             F_mean, E_mean = observable["F_mean"], observable["E_mean"]
-            if reduce is not None:  # two reductions, one after the other
-                F_mean, E_mean = reduce([F_mean, E_mean])
+            count = Floc.shape[0]
+            if group is not None:  # two reductions, one after the other
+                F_mean, E_mean = mesh.window_mean([F_mean, E_mean], group, count)
             tvF = (Floc - F_mean).abs().mean()
             tvE = (Eloc - E_mean).abs().mean()
-            if reduce is not None:
-                tvF, tvE = reduce([tvF, tvE])
+            if group is not None:
+                tvF, tvE = mesh.window_mean([tvF, tvE], group, count)
 
             Floc_clipped = torch.clamp(
                 Floc, F_mean - clip_factor * tvF, F_mean + clip_factor * tvF)

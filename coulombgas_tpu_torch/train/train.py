@@ -21,7 +21,7 @@ from ..parallel import mesh
 from ..sampling.mcmc import mcmc
 
 __all__ = ["make_sample_step", "make_accumulate_and_apply", "init_accumulators",
-           "apply_raveled_update", "ranks_per_chunk", "reduce_accumulators",
+           "apply_raveled_update", "chunk_layout", "reduce_accumulators",
            "DATA_KEYS", "FISHER_KEYS"]
 
 DATA_KEYS = ("F_mean", "F2_mean", "E_mean", "E2_mean", "K_mean",
@@ -84,35 +84,35 @@ def init_accumulators(van, flow, sr: bool = False):
     return acc
 
 
-def ranks_per_chunk(batch: int, microbatch: int | None, world_size: int) -> int:
-    """How many consecutive ranks share one REINFORCE clip window.
+def chunk_layout(batch: int, microbatch: int | None, world_size: int) -> list[tuple]:
+    """The JAX package's microbatch chunks of the global batch, and which
+    ranks hold them.
 
     The JAX package cuts the *global* batch of ``batch`` walkers into chunks
-    of ``microbatch`` (``coulombgas_tpu/train/train.py:accumulate``), each
-    with its own window; rank r of ``world_size`` holds walkers
-    [r B / W, (r + 1) B / W).  Returns ``world_size`` where the window is the
-    whole batch's (no microbatch, or one at least the batch), 1 where every
-    chunk lies inside one rank's share (the microbatch divides the local
-    batch: no reduction), and microbatch / local batch where a chunk spans
-    that many ranks.  Raises ``ValueError`` for a batch the ranks cannot
-    share equally, and for chunks that straddle a rank's edge (neither the
-    microbatch nor the local batch divides the other).
+    of ``microbatch`` whatever the mesh (``coulombgas_tpu/train/train.py:
+    accumulate``), each with its own clip window; no microbatch, or one at
+    least the batch, is one chunk.  Rank r of ``world_size`` holds walkers
+    [r B / W, (r + 1) B / W).  Returns one tuple per chunk, in chunk order,
+    of ``(rank, start, stop)`` for each rank holding a piece of it, with
+    ``start:stop`` the piece's walkers within that rank's share.  Raises
+    ``ValueError`` for what ``main.py`` refuses: a batch the ranks cannot
+    share equally (``main.py:330``) and a microbatch that does not divide
+    the batch (the JAX accumulate's assert).
     """
     if batch % world_size:
         raise ValueError("batch (%d) must be divisible by the number of devices (%d)"
                          % (batch, world_size))
-    if microbatch is None or microbatch >= batch:
-        return world_size
-    local = batch // world_size
-    if local % microbatch == 0:
-        return 1
-    if microbatch % local == 0 and batch % microbatch == 0:
-        return microbatch // local
-    if world_size == 1:
+    size = batch if microbatch is None or microbatch >= batch else microbatch
+    if batch % size:
         raise ValueError("--microbatch %d must divide the batch of %d walkers"
                          % (microbatch, batch))
-    raise ValueError("--microbatch %d must divide the local batch of %d walkers or be a "
-                     "multiple of it that divides the batch" % (microbatch, local))
+    local = batch // world_size
+    chunks = []
+    for c0 in range(0, batch, size):
+        c1 = c0 + size
+        chunks.append(tuple((r, max(c0, r * local) - r * local, min(c1, (r + 1) * local) - r * local)
+                            for r in range(c0 // local, (c1 - 1) // local + 1)))
+    return chunks
 
 
 def reduce_accumulators(acc, accept_sum: float = 0.0, leave_out=()):
@@ -132,8 +132,7 @@ def reduce_accumulators(acc, accept_sum: float = 0.0, leave_out=()):
     return dict(acc, **out["acc"]), float(out["accept"])
 
 
-def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int,
-                              microbatch: int | None = None,
+def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int, pieces=None,
                               sr_opt: HybridFisherSR | None = None):
     """Build (accumulate, apply_update) for one training epoch.
 
@@ -146,12 +145,17 @@ def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int,
     per-sample score matrices that the Fisher needs anyway (the clipped
     weights are constants of the loss closures), so no loss gradient is taken.
 
-    ``microbatch`` bounds the memory of the autograd graphs: the batch is
-    processed in chunks of that many walkers, one after the other, and the
-    chunks' contributions averaged.  (The REINFORCE clipping window is then
-    computed per chunk rather than per batch.)  Under data parallelism the
-    batch given to ``accumulate`` is this rank's share, and a chunk at least
-    that large is the share itself (``ranks_per_chunk``), and every rank
+    ``pieces`` bounds the memory of the autograd graphs: the batch given to
+    ``accumulate`` (under data parallelism, this rank's share) is processed
+    piece by piece, in the global batch's microbatch chunks
+    (``parallel.mesh.window_groups(chunk_layout(batch, microbatch,
+    world_size))``): ``(start, stop, group)`` in chunk order, ``group`` None
+    where the chunk lies inside this process, else the process group of the
+    ranks holding it, over which the chunk's REINFORCE clip window is
+    reduced (``train/loss.py``).  Each piece weighs ``(stop - start) /
+    share``, so that the ranks' mean (``reduce_accumulators``) is the global
+    batch's; where the microbatch divides the share this is ``1 / chunks``.
+    None: the whole batch is one piece, with one clip window.  Every rank
     applies rank 0's SR update and diagnostics (``mesh.replicate_update``).
     """
 
@@ -164,9 +168,9 @@ def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int,
 
     use_sr = sr_opt is not None
 
-    def _one_batch(van, flow, state_indices, x, generator, v):
+    def _one_batch(van, flow, state_indices, x, generator, v, group):
         data, classical_lossfn, quantum_lossfn, aux = observable_and_lossfn(
-            van, flow, state_indices, x, generator, v)
+            van, flow, state_indices, x, generator, v, group=group)
         if use_sr:
             with torch.no_grad():
                 s_c, s_q = sr_opt.scores(van, flow, state_indices, x)
@@ -210,16 +214,18 @@ def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int,
     def accumulate(van, flow, state_indices, x, generator, acc, v=None):
         """Add one batch's contribution to ``acc`` (in place) and return it."""
         batch = x.shape[0]
-        if microbatch is None or batch <= microbatch:
-            return _add(acc, _one_batch(van, flow, state_indices, x, generator, v))
-        if batch % microbatch:
-            raise ValueError("batch %d is not a multiple of microbatch %d" % (batch, microbatch))
-        nchunks = batch // microbatch
-        for s in range(0, batch, microbatch):
-            sl = slice(s, s + microbatch)
+        if pieces is None:
+            return _add(acc, _one_batch(van, flow, state_indices, x, generator, v, None))
+        if batch != pieces[-1][1]:
+            raise ValueError("accumulate was given %d walkers; its pieces cut %d"
+                             % (batch, pieces[-1][1]))
+        if len(pieces) == 1:  # the whole share is one piece
+            return _add(acc, _one_batch(van, flow, state_indices, x, generator, v, pieces[0][2]))
+        for start, stop, group in pieces:
+            sl = slice(start, stop)
             contrib = _one_batch(van, flow, state_indices[sl], x[sl], generator,
-                                 None if v is None else v[sl])
-            _add(acc, contrib, 1.0 / nchunks)
+                                 None if v is None else v[sl], group)
+            _add(acc, contrib, (stop - start) / batch)
         return acc
 
     @torch.no_grad()

@@ -17,10 +17,13 @@ Data parallelism, one process per GPU over ``torch.distributed``
 processes on this host (0: every visible GPU; under ``--cpu``, K gloo
 processes, 0 meaning one); ``--multihost --coordinator H:P --num_processes N
 --process_id i`` makes this process rank i of N, and ``--multihost`` alone
-reads ``torchrun``'s environment.  Each rank holds ``--batch`` / W walkers of
-the global batch; the clip window, the epoch's accumulators and the accept
-rate are averaged over the ranks, rank 0's parameters and SR updates are
-broadcast, and rank 0 alone writes the run directory.
+reads a ``torchrun``, Open MPI or SLURM job's environment, as
+``jax.distributed.initialize`` reads the latter two (the counts missing
+beside ``--coordinator`` too).  Each rank holds ``--batch`` / W walkers of
+the global batch; a ``--microbatch`` chunk's clip window is reduced over the
+ranks that hold it, the epoch's accumulators and the accept rate are
+averaged over the ranks, rank 0's parameters and SR updates are broadcast,
+and rank 0 alone writes the run directory.
 
 The pretrained VAN is read from ``params_van.pkl`` under ``--folder``, where
 ``main.py`` writes and looks for it; where there is none, the free-fermion
@@ -40,6 +43,8 @@ Examples (the checked-in pretrainings and the n = 57 epoch-100 checkpoint):
       --out_folder runs/ --epoch 100
   torchrun --nproc_per_node 4 main_torch.py --multihost --sr --hutchinson \
       --folder data/interacting/ --out_folder runs/ --epoch 100
+  srun --ntasks 8 --gpus-per-task 1 python main_torch.py --multihost --sr \
+      --hutchinson --folder data/interacting/ --out_folder runs/ --epoch 100
 """
 
 import argparse
@@ -47,6 +52,7 @@ import copy
 import hashlib
 import math
 import os
+import re
 import socket
 import sys
 import time
@@ -81,8 +87,8 @@ from coulombgas_tpu_torch.sampling.autoregressive import (
 from coulombgas_tpu_torch.train.loss import make_loss
 from coulombgas_tpu_torch.train.pretrain import pretrain
 from coulombgas_tpu_torch.train.train import (
-    apply_raveled_update, init_accumulators, make_accumulate_and_apply,
-    make_sample_step, ranks_per_chunk, reduce_accumulators,
+    apply_raveled_update, chunk_layout, init_accumulators, make_accumulate_and_apply,
+    make_sample_step, reduce_accumulators,
 )
 from coulombgas_tpu_torch.train.tripwire import UpdateTripwire
 from coulombgas_tpu_torch.utils.watchdog import StepWatchdog
@@ -195,13 +201,14 @@ def parse_args(argv=None):
     parser.add_argument("--cpu", action="store_true", help="run on the CPU (f64)")
     parser.add_argument("--multihost", action="store_true",
                         help="join a process group of one process per GPU (with "
-                             "--coordinator, or from torchrun's environment)")
+                             "--coordinator, or from a torchrun, Open MPI or SLURM "
+                             "job's environment)")
     parser.add_argument("--coordinator", default=None,
                         help="multihost: rank 0's host:port")
     parser.add_argument("--num_processes", type=int, default=None,
-                        help="multihost: the number of processes (with --coordinator)")
+                        help="multihost: the number of processes (default: the job's)")
     parser.add_argument("--process_id", type=int, default=None,
-                        help="multihost: this process's rank (with --coordinator)")
+                        help="multihost: this process's rank (default: the job's)")
     return parser.parse_args(argv)
 
 
@@ -234,33 +241,118 @@ class Launch:
     local_index: int = 0
 
 
+@dataclass(frozen=True)
+class Cluster:
+    """The process layout a cluster's launcher gives this process."""
+
+    name: str
+    world_size: int
+    rank: int
+    local_rank: int | None
+    coordinator: str | None = None  # host:port of rank 0; None: torchrun's env://
+
+
+# JAX's port range for a coordinator it derives from a job id
+# (jax/_src/clusters: the ephemeral range [65535 - 2^12 + 1, 65535])
+_PORT_BASE, _PORT_SPAN = 65535 - 2**12 + 1, 2**12
+
+
+def _slurm_first_host(node_list: str) -> str:
+    """The first host of a SLURM node list: ``node001``, ``node001,host2``,
+    ``node[001-015],host2`` and ``node[001,007-015],host2`` all give
+    ``node001`` (jax/_src/clusters/slurm_cluster.py).  ``node[001]`` gives
+    ``node001`` here, where that file keeps the bracket."""
+    ind = next((i for i, ch in enumerate(node_list) if ch in ",["), len(node_list))
+    if ind == len(node_list) or node_list[ind] == ",":
+        return node_list[:ind]
+    suffix = node_list[ind + 1:]
+    end = next((i for i, ch in enumerate(suffix) if ch in ",-]"), None)
+    return node_list[:ind] + suffix[:end]
+
+
+def cluster_environment(environ=os.environ) -> Cluster | None:
+    """The cluster that started this process, read from its environment:
+    ``torchrun``'s (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``), then, in the order ``jax.distributed.initialize``
+    tries them, Open MPI's (``OMPI_MCA_orte_hnp_uri``,
+    ``OMPI_COMM_WORLD_SIZE/RANK/LOCAL_RANK``) and SLURM's (``SLURM_JOB_ID``,
+    ``SLURM_STEP_NODELIST``, ``SLURM_NTASKS``, ``SLURM_PROCID``,
+    ``SLURM_LOCALID``), with the coordinator address JAX derives there
+    (``JAX_COORDINATOR_PORT`` overrides its port).  None outside a cluster."""
+    if all(k in environ for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")):
+        local = environ.get("LOCAL_RANK")
+        return Cluster("torchrun", int(environ["WORLD_SIZE"]), int(environ["RANK"]),
+                       None if local is None else int(local))
+    port = environ.get("JAX_COORDINATOR_PORT")
+    if "OMPI_MCA_orte_hnp_uri" in environ:
+        uri = environ["OMPI_MCA_orte_hnp_uri"]
+        if not port:  # the job id is a multiple of 2^12
+            port = str(int(uri.split(".", maxsplit=1)[0]) // 2**12 % _PORT_SPAN + _PORT_BASE)
+        found = re.search(r"tcp://(.+?)[,:]|tcp6://\[(.+?)[,\]]", uri)
+        if found is None:
+            raise SystemExit("main_torch.py: no coordinator address in OMPI_MCA_orte_hnp_uri "
+                             "(%s)" % uri)
+        host = next(g for g in found.groups() if g is not None)
+        return Cluster("ompi", int(environ["OMPI_COMM_WORLD_SIZE"]),
+                       int(environ["OMPI_COMM_WORLD_RANK"]),
+                       int(environ["OMPI_COMM_WORLD_LOCAL_RANK"]), "%s:%s" % (host, port))
+    slurm = ("SLURM_JOB_ID", "SLURM_STEP_NODELIST", "SLURM_NTASKS", "SLURM_PROCID",
+             "SLURM_LOCALID")
+    if all(k in environ for k in slurm):
+        if not port:
+            port = str(int(environ["SLURM_JOB_ID"]) % _PORT_SPAN + _PORT_BASE)
+        host = _slurm_first_host(environ["SLURM_STEP_NODELIST"])
+        return Cluster("slurm", int(environ["SLURM_NTASKS"]), int(environ["SLURM_PROCID"]),
+                       int(environ["SLURM_LOCALID"]), "%s:%s" % (host, port))
+    return None
+
+
+def _tcp(address: str) -> str:
+    """``tcp://host:port`` for ``torch.distributed``, an IPv6 host in brackets."""
+    host, _, port = address.rpartition(":")
+    return "tcp://%s:%s" % ("[%s]" % host if ":" in host and not host.startswith("[") else host,
+                            port)
+
+
 def plan_launch(args, environ=os.environ) -> Launch:
     """The process layout the device flags ask for, as ``main.py`` reads
-    them; every refusal happens here, before any process group is formed."""
+    them; every refusal happens here, before any process group is formed.
+
+    ``--multihost`` takes what its flags give and the rest from the cluster
+    that started this process (``cluster_environment``), as
+    ``jax.distributed.initialize`` does; the cluster's local rank picks the
+    card."""
     if args.multihost:
+        env = cluster_environment(environ)
         if args.coordinator is not None:
-            if args.num_processes is None or args.process_id is None:
-                raise SystemExit("main_torch.py: --multihost --coordinator needs "
-                                 "--num_processes and --process_id")
             world, rank = args.num_processes, args.process_id
-            init = "tcp://" + args.coordinator
+            if env is not None:
+                world = env.world_size if world is None else world
+                rank = env.rank if rank is None else rank
+            if world is None or rank is None:
+                raise SystemExit("main_torch.py: --multihost --coordinator needs "
+                                 "--num_processes and --process_id outside a torchrun, "
+                                 "Open MPI or SLURM job")
+            init = _tcp(args.coordinator)
+        elif env is None:
+            raise SystemExit("main_torch.py: --multihost without --coordinator reads a "
+                             "torchrun, Open MPI or SLURM job's environment, and there is none")
         else:
-            missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
-                       if k not in environ]
-            if missing:
-                raise SystemExit("main_torch.py: --multihost without --coordinator reads "
-                                 "torchrun's environment, and %s is not set"
-                                 % "/".join(missing))
-            world, rank, init = int(environ["WORLD_SIZE"]), int(environ["RANK"]), "env://"
+            world, rank = env.world_size, env.rank
+            init = "env://" if env.coordinator is None else _tcp(env.coordinator)
         if not 0 <= rank < world:
             raise SystemExit("main_torch.py: process %d is not one of %d" % (rank, world))
         if args.num_devices not in (0, world):
+            # main.py fails here too: its mesh is the first K devices of all
+            # processes', and a process holding none of them dies in shard_batch
             raise SystemExit("main_torch.py: --multihost runs one process per GPU; "
                              "--num_devices %d differs from its %d processes"
                              % (args.num_devices, world))
+        # the job's local rank picks the card, modulo the cards this process
+        # sees (a launcher may show each task its own card alone)
         cards = 1 if args.cpu else max(torch.cuda.device_count(), 1)
-        local = int(environ.get("LOCAL_RANK", rank % cards))
-        plan = Launch(world, rank=rank, init_method=init, local_index=local)
+        local = rank if env is None or env.local_rank is None else env.local_rank
+        plan = Launch(world, rank=rank, init_method=init, local_index=local % cards)
     elif args.cpu:
         plan = Launch(max(args.num_devices, 1), spawn=args.num_devices > 1)
     else:
@@ -271,7 +363,7 @@ def plan_launch(args, environ=os.environ) -> Launch:
                   % (args.num_devices, cards, world))
         plan = Launch(world, spawn=world > 1)
     try:
-        ranks_per_chunk(args.batch, args.microbatch or None, plan.world_size)
+        chunk_layout(args.batch, args.microbatch or None, plan.world_size)
     except ValueError as err:
         raise SystemExit("main_torch.py: %s" % err)
     return plan
@@ -396,7 +488,7 @@ def build_trainer(args, out_folder=None) -> Trainer:
     print("torch", torch.__version__, "device:", device, "precision:", rdtype)
     if grid.backend is not None:
         print("rank %d of %d (%s)" % (grid.rank, world, grid.backend))
-    group_size = ranks_per_chunk(args.batch, args.microbatch or None, world)
+    layout = chunk_layout(args.batch, args.microbatch or None, world)
     local_batch = args.batch // world
 
     n, dim = args.n, args.dim
@@ -541,18 +633,12 @@ def build_trainer(args, out_folder=None) -> Trainer:
         logpsi_grad_laplacian = make_logpsi_grad_laplacian(
             logpsi, forloop=args.forloop_laplacian, hutchinson=args.hutchinson,
             logphi=logphi, logjacdet=logjacdet)
-    # the REINFORCE clip window of a batch or microbatch chunk spread over
-    # several ranks is reduced over exactly those ranks
-    reduce = None
-    if group_size > 1:
-        group = mesh.window_group(group_size)
-        reduce = lambda ts: mesh.all_reduce_mean(ts, group)  # noqa: E731
+    # this rank's pieces of the global batch's microbatch chunks; the clip
+    # window of a chunk several ranks hold is reduced over exactly those
     observable_and_lossfn = make_loss(
-        log_prob, logpsi, logpsi_grad_laplacian, args.kappa, G, L, args.rs, Vconst, beta,
-        reduce=reduce)
+        log_prob, logpsi, logpsi_grad_laplacian, args.kappa, G, L, args.rs, Vconst, beta)
     accumulate, apply_update = make_accumulate_and_apply(
-        observable_and_lossfn, args.acc_steps, microbatch=args.microbatch or None,
-        sr_opt=sr_opt)
+        observable_and_lossfn, args.acc_steps, pieces=mesh.window_groups(layout), sr_opt=sr_opt)
 
     # one stream per rank; this rank's walkers
     generator = torch.Generator(device=device).manual_seed(rank_seed(grid.rank))

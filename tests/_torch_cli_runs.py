@@ -1,7 +1,8 @@
 """Shared set-up of the CPU tests that run ``main_torch.py`` in several
 processes (gloo): ``tests/test_torch_multiprocess.py``,
-``tests/test_torch_multiprocess_coordinator.py`` and
-``tests/test_torch_multiprocess_resume.py``.
+``tests/test_torch_multiprocess_coordinator.py``,
+``tests/test_torch_multiprocess_resume.py`` and
+``tests/test_torch_cluster_env.py``.
 
 The n = 3 configuration of ``tests/test_multihost.py`` with the SR Hutchinson
 flags, its widths cut for the CPU.
@@ -32,16 +33,18 @@ def coordinator(world):
             "--num_processes", str(world)]
 
 
-def launch(folder, extra=(), ranks=(None,)):
+def launch(folder, extra=(), ranks=(None,), envs=None):
     """Run ``main_torch.py`` once per entry of ``ranks`` (None: no
-    --process_id), all at once; returns their outputs, failing on a non-zero
+    --process_id), all at once, process i with ``envs[i]`` added to its
+    environment where given; returns their outputs, failing on a non-zero
     exit of any.  Every wait has a timeout."""
     cmd = [sys.executable, os.path.join(REPO, "main_torch.py"), *CONFIG,
            "--folder", str(folder) + os.sep, *extra]
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(cmd + ([] if r is None else ["--process_id", str(r)]),
-                              cwd=REPO, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in ranks]
+                              cwd=REPO, env=dict(env, **(envs[i] if envs else {})),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for i, r in enumerate(ranks)]
     try:
         outs = [p.communicate(timeout=TIMEOUT_S)[0] for p in procs]
     finally:

@@ -1,5 +1,6 @@
 """Shared set-up of the port's CPU data-parallel tests
-(``tests/test_torch_parallel.py``, ``tests/test_torch_parallel_groups.py``).
+(``tests/test_torch_parallel.py``, ``tests/test_torch_parallel_groups.py``,
+``tests/test_torch_parallel_straddle.py``).
 
 The same global batch of walkers, occupations and Hutchinson probes (numpy
 seed; the probes are the JAX engine's own draws) goes through one accumulate
@@ -41,43 +42,57 @@ KEY = jax.random.PRNGKey(7)
 RTOL_OBS, RTOL_P, ATOL_P = 1e-9, 1e-8, 1e-10
 
 
-def argv(folder, opt, micro):
+def argv(folder, opt, micro, batch=BATCH):
     return (["--cpu", "--hutchinson", "--n", str(N), "--dim", str(DIM), "--rs", "5.0",
              "--Emax", str(EMAX), "--nlayers", "1", "--modelsize", "8", "--nheads", "2",
              "--nhidden", "12", "--depth", "2", "--spsize", "6", "--tpsize", "5",
-             "--Gmax", "5", "--kappa", "6", "--batch", str(BATCH), "--acc_steps", "1",
+             "--Gmax", "5", "--kappa", "6", "--batch", str(batch), "--acc_steps", "1",
              "--folder", folder, "--tripwire_sigma", "0"]
             + OPTIMIZERS[opt] + (["--microbatch", str(micro)] if micro else []))
 
 
-def _chunks(micro):
+def layout(layouts, name):
+    """(ranks, microbatch, global batch) of a layout given as (ranks,
+    microbatch) at ``BATCH`` walkers or as all three."""
+    world, micro, *batch = layouts[name]
+    return world, micro, (batch[0] if batch else BATCH)
+
+
+def _chunks(micro, batch=BATCH):
     """The JAX package's chunks of the global batch (one at least the batch
     is the whole-batch program)."""
-    return 1 if micro is None or micro >= BATCH else BATCH // micro
+    return 1 if micro is None or micro >= batch else batch // micro
+
+
+def _stacks(batch):
+    return training_stacks(n=N, dim=DIM, batch=batch, Emax=EMAX, rs=5.0, kappa=6, gmax=5)
 
 
 def jax_steps(stacks, cases, layouts):
     """The JAX package's accumulate and apply over a mesh of as many CPU
     devices as the layout has ranks, for each (optimizer, layout) of
-    ``cases``; SR ``plain`` and ``host64`` share one accumulate."""
+    ``cases`` (``stacks``: ``training_stacks`` by global batch); SR
+    ``plain`` and ``host64`` share one accumulate."""
     from jax.flatten_util import ravel_pytree
 
-    pv, pf = stacks["params_van"], stacks["params_flow"]
-    si, x = jnp.asarray(stacks["si"]), jnp.asarray(stacks["x"])
-    sr_opt = jax_sr.hybrid_fisher_sr(stacks["classical_score_j"], stacks["quantum_score_j"],
+    first = next(iter(stacks.values()))
+    pv, pf = first["params_van"], first["params_flow"]
+    sr_opt = jax_sr.hybrid_fisher_sr(first["classical_score_j"], first["quantum_score_j"],
                                      DAMPING, MAX_NORM)
     adam = optax.adam(LR)
     accs, applies, out = {}, {}, {}
     for opt, lay in cases:
-        ndev, micro = layouts[lay]
+        ndev, micro, batch = layout(layouts, lay)
+        st = stacks[batch]
+        si, x = jnp.asarray(st["si"]), jnp.asarray(st["x"])
         sr = opt != "adam"
-        key = (sr, ndev, _chunks(micro))
+        key = (sr, ndev, _chunks(micro, batch), batch)
         if key not in accs:
             mesh = make_mesh(jax.devices()[:ndev])
             bspec, rspec = batch_spec(mesh), replicated_spec(mesh)
             acc_fn, apply_fn = jax_make_accumulate_and_apply(
-                stacks["loss_j"], None if sr else adam, 1, sr_opt if sr else None,
-                microbatch=None if _chunks(micro) == 1 else micro)
+                st["loss_j"], None if sr else adam, 1, sr_opt if sr else None,
+                microbatch=None if _chunks(micro, batch) == 1 else micro)
             applies.setdefault(sr, jax.jit(apply_fn))  # the apply reads no microbatch
             accs[key] = jax.jit(acc_fn, in_shardings=(rspec, rspec, bspec, bspec, None, rspec),
                                 out_shardings=rspec)(
@@ -100,24 +115,26 @@ def parallel_runs(tmp, cases, layouts, jax_cases):
     """Every case in ranks (``runs["ranks"][case]``: one result per rank),
     in one process (``"one"``) and, for ``jax_cases``, in the JAX package
     (``"jax"``: observables and new parameter pytrees)."""
-    stacks = training_stacks(n=N, dim=DIM, batch=BATCH, Emax=EMAX, rs=5.0, kappa=6, gmax=5)
-    trees = (np_tree(stacks["params_van"]), np_tree(stacks["params_flow"]))
+    stacks = {b: _stacks(b) for b in sorted({layout(layouts, lay)[2] for _, lay in cases})}
+    first = next(iter(stacks.values()))  # the models do not depend on the batch
+    trees = (np_tree(first["params_van"]), np_tree(first["params_flow"]))
     folder = str(tmp) + os.sep
     args = main_torch.parse_args(argv(folder, "adam", None))
     pre = main_torch.freefermion_path(args, np.array(args.twist))
     os.makedirs(pre)
     save_data(trees[0], os.path.join(pre, "params_van.pkl"))
-    x, si = stacks["x"], stacks["si"]
     jobs, one = {}, {}
     for opt, lay in cases:
-        world, micro = layouts[lay]
-        args_, v = argv(folder, opt, micro), hutchinson_probe(KEY, x.shape, _chunks(micro))
-        job = jobs.setdefault(world, {"trees": trees, "x": x, "si": si, "cases": []})
+        world, micro, batch = layout(layouts, lay)
+        x, si = stacks[batch]["x"], stacks[batch]["si"]
+        args_ = argv(folder, opt, micro, batch)
+        v = hutchinson_probe(KEY, x.shape, _chunks(micro, batch))
+        job = jobs.setdefault((world, batch), {"trees": trees, "x": x, "si": si, "cases": []})
         job["cases"].append({"argv": args_, "v": v, "name": (opt, lay)})
         one[opt, lay] = dw.step(args_, trees, x, si, v, str(tmp / "one"))
     ranks = {}
-    for world, job in jobs.items():
-        for r, per_rank in enumerate(dw.run(world, job, tmp / ("w%d" % world))):
+    for (world, batch), job in jobs.items():
+        for r, per_rank in enumerate(dw.run(world, job, tmp / ("w%d_b%d" % (world, batch)))):
             for c, res in zip(job["cases"], per_rank):
                 ranks.setdefault(c["name"], [None] * world)[r] = res
     return {"one": one, "jax": jax_steps(stacks, jax_cases, layouts), "ranks": ranks}

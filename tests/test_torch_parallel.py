@@ -54,19 +54,33 @@ def test_a_chunk_of_both_halves_is_the_whole_batch(runs):
         assert any((whole[k] != local[k]).any() for k in whole)
 
 
+def _ranks_per_chunk(batch, micro, world):
+    """The most ranks that share one microbatch chunk's clip window."""
+    from coulombgas_tpu_torch.train.train import chunk_layout
+
+    return max(len(chunk) for chunk in chunk_layout(batch, micro, world))
+
+
 @pytest.mark.parametrize("batch,micro,world,want", [
     (16, None, 2, 2), (16, 16, 2, 2), (16, 32, 2, 2), (16, 4, 2, 1), (16, 8, 2, 1),
     (16, 8, 4, 2), (16, 4, 4, 1), (24, 12, 4, 2), (16, None, 1, 1), (16, 4, 1, 1),
 ])
 def test_ranks_per_chunk(batch, micro, world, want):
-    from coulombgas_tpu_torch.train.train import ranks_per_chunk
-
-    assert ranks_per_chunk(batch, micro, world) == want
+    assert _ranks_per_chunk(batch, micro, world) == want
 
 
-@pytest.mark.parametrize("batch,micro,world", [(15, None, 2), (24, 4, 4), (24, 9, 3)])
-def test_ranks_per_chunk_refuses_what_the_ranks_cannot_share(batch, micro, world):
-    from coulombgas_tpu_torch.train.train import ranks_per_chunk
-
-    with pytest.raises(ValueError):
-        ranks_per_chunk(batch, micro, world)
+# what main.py refuses: a batch the devices cannot share equally
+# (main.py:330) and a microbatch that does not divide the batch (the JAX
+# accumulate's assert); None: main.py trains, and a chunk may straddle two
+# ranks' shares, with the most ranks a chunk spans
+@pytest.mark.parametrize("batch,micro,world,want", [
+    pytest.param(b, m, w, want, id="%d-%s-%d" % (b, m, w)) for b, m, w, want in [
+        (15, None, 2, None), (24, 4, 4, 2), (24, 9, 3, None), (18, 9, 3, 2), (12, 4, 2, 2),
+        (16, 6, 2, None), (24, 20, 4, None), (24, 48, 4, 4)]
+])
+def test_ranks_per_chunk_refuses_what_the_ranks_cannot_share(batch, micro, world, want):
+    if want is None:
+        with pytest.raises(ValueError):
+            _ranks_per_chunk(batch, micro, world)
+    else:
+        assert _ranks_per_chunk(batch, micro, world) == want

@@ -32,7 +32,10 @@ from coulombgas_tpu_torch.io.convert import (
     flatten_tree, ravel_order, ravel_params, unravel_like,
 )
 from coulombgas_tpu_torch.optim import host_sr, sr
-from coulombgas_tpu_torch.train.train import init_accumulators, make_accumulate_and_apply
+from coulombgas_tpu_torch.parallel import mesh
+from coulombgas_tpu_torch.train.train import (
+    chunk_layout, init_accumulators, make_accumulate_and_apply,
+)
 
 from _torch_helpers import hutchinson_probe, t, training_stacks
 
@@ -369,8 +372,9 @@ def sr_step(request, stacks):
 
     # copies of the modules: apply_update moves the parameters in place
     van, flow = copy.deepcopy(stacks["van"]), copy.deepcopy(stacks["flow"])
+    pieces = None if micro is None else mesh.window_groups(chunk_layout(x.shape[0], micro, 1))
     accumulate, apply_update = make_accumulate_and_apply(
-        stacks["loss"], 1, microbatch=micro, sr_opt=_sr_opt(stacks))
+        stacks["loss"], 1, pieces=pieces, sr_opt=_sr_opt(stacks))
     acc = accumulate(van, flow, t(si), t(x), None, init_accumulators(van, flow, sr=True), v=t(v))
     acc_copy = {k: (val.clone() if torch.is_tensor(val) else val) for k, val in acc.items()}
     before = (ravel_params(van).clone(), ravel_params(flow).clone())

@@ -26,11 +26,12 @@ from coulombgas_tpu_torch.io.convert import flatten_tree
 from coulombgas_tpu_torch.models.ferminet_jac import (
     ferminet_apply_and_jac, ferminet_apply_jac_lap,
 )
+from coulombgas_tpu_torch.parallel import mesh
 from coulombgas_tpu_torch.physics import ewald
 from coulombgas_tpu_torch.sampling.autoregressive import make_autoregressive_sampler
 from coulombgas_tpu_torch.train.loss import make_loss
 from coulombgas_tpu_torch.train.train import (
-    DATA_KEYS, init_accumulators, make_accumulate_and_apply, make_sample_step,
+    DATA_KEYS, chunk_layout, init_accumulators, make_accumulate_and_apply, make_sample_step,
 )
 from coulombgas_tpu_torch.wavefunction.fast_laplacian import (
     make_logpsi_grad_laplacian_analytic,
@@ -138,15 +139,17 @@ def test_microbatched_accumulate_averages_the_chunks(both):
     van, flow, loss = both["van"], both["flow"], both["loss"]
     x, si, v = t(both["x"]), t(both["si"]), t(both["v"])
     whole, _ = make_accumulate_and_apply(loss, 1)
-    chunked, _ = make_accumulate_and_apply(loss, 1, microbatch=3)
+    chunked, _ = make_accumulate_and_apply(
+        loss, 1, pieces=mesh.window_groups(chunk_layout(x.shape[0], 3, 1)))
     a = whole(van, flow, si, x, None, init_accumulators(van, flow), v=v)
     b = chunked(van, flow, si, x, None, init_accumulators(van, flow), v=v)
     for k in ("F_mean", "E_mean", "K_mean", "V_mean", "S_mean", "E2_mean"):
         np.testing.assert_allclose(float(b["data"][k]), float(a["data"][k]), rtol=1e-10)
     assert all(torch.isfinite(g).all() for g in b["grads"][1])
-    with pytest.raises(ValueError):
-        make_accumulate_and_apply(loss, 1, microbatch=4)[0](
-            van, flow, si, x, None, init_accumulators(van, flow), v=v)
+    with pytest.raises(ValueError):  # 4 does not divide the batch
+        chunk_layout(x.shape[0], 4, 1)
+    with pytest.raises(ValueError):  # pieces of another batch
+        chunked(van, flow, si[:-3], x[:-3], None, init_accumulators(van, flow), v=v[:-3])
 
 
 def test_accumulators_start_at_zero_and_sr_waits(both):
