@@ -2,17 +2,18 @@
 ``main_torch.py`` (the kernel builds and first launches happen there).
 
 ``train`` runs with ``--hang_timeout`` 1 s and a watchdog whose exit is
-recorded instead of taken, through two epochs that each take 2 s: the first
-runs under the 4x grace and must not trigger, the second runs at the plain
-budget and must.  A heartbeat at the top of the loop would spend the grace
-before the first epoch ran.
+recorded instead of taken, through two epochs that each take 2 s of a clock
+the test moves (``tests/_watchdog_clock.py``), whatever their work takes on
+the machine's own clock: the first runs under the 4x grace and must not
+trigger, the second runs at the plain budget and must.  A heartbeat at the
+top of the loop would spend the grace before the first epoch ran.
 """
 
-import functools
 import os
-import time
 
 import main_torch
+from _watchdog_clock import install
+from coulombgas_tpu_torch.utils import watchdog
 from coulombgas_tpu_torch.utils.watchdog import HANG_EXIT_CODE, StepWatchdog
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -24,14 +25,20 @@ SMALL = ["--cpu", "--hutchinson", "--n", "13", "--batch", "4", "--mc_therm", "1"
 
 
 def test_the_first_epoch_runs_under_the_grace(tmp_path, monkeypatch):
-    fired, epochs = [], []
-    monkeypatch.setattr(main_torch, "StepWatchdog", functools.partial(
-        StepWatchdog, poll_s=0.05, exit_fn=lambda code: fired.append((code, list(epochs)))))
+    clock = install(monkeypatch, watchdog)
+    fired, epochs, made = [], [], []
+
+    def make_watchdog(*args, **kw):
+        made.append(StepWatchdog(*args, poll_s=0.05, **kw,
+                                 exit_fn=lambda code: fired.append((code, list(epochs)))))
+        return made[-1]
+
+    monkeypatch.setattr(main_torch, "StepWatchdog", make_watchdog)
     apply_step = main_torch.apply_step
 
     def slow_apply(tr, acc, epoch, *rest):
         epochs.append(epoch)
-        time.sleep(SLOW_S)
+        clock.advance(SLOW_S, made[0])
         return apply_step(tr, acc, epoch, *rest)
 
     monkeypatch.setattr(main_torch, "apply_step", slow_apply)

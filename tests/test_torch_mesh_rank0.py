@@ -28,8 +28,13 @@ def _rank(rank, world, port, out):
     try:
         t0 = time.time()
         if rank == 0:
+            # the work starts once rank 1 waits, so that rank 1 waits for all
+            # of it however late the machine let it start
+            while not os.path.exists(out + ".waiting"):
+                time.sleep(0.05)
             time.sleep(RANK0_WORK_S)
         else:
+            open(out + ".waiting", "w").close()
             mesh.wait_for_rank0("work", poll=0.1)
         mesh.release("work")
         waited = time.time() - t0

@@ -6,7 +6,17 @@ inert at timeout 0 — and the profiling helpers.
 
 import time
 
+import pytest
+
+from _watchdog_clock import install
+from coulombgas_tpu_torch.utils import watchdog
 from coulombgas_tpu_torch.utils.watchdog import HANG_EXIT_CODE, StepWatchdog
+
+
+@pytest.fixture
+def clock(monkeypatch):
+    """The watchdog reads a clock that only the test moves."""
+    return install(monkeypatch, watchdog)
 
 
 def _make(timeout, **kw):
@@ -15,33 +25,33 @@ def _make(timeout, **kw):
     return wd, fired
 
 
-def test_fires_on_silence():
+def test_fires_on_silence(clock):
     wd, fired = _make(0.15, first_grace=1.0)
     wd.start()
-    time.sleep(0.5)
+    clock.advance(0.5, wd)
     wd.stop()
     assert fired == [HANG_EXIT_CODE] and HANG_EXIT_CODE == 42
 
 
-def test_quiet_under_heartbeat_then_fires():
+def test_quiet_under_heartbeat_then_fires(clock):
     wd, fired = _make(0.2, first_grace=1.0)
     wd.start()
     for _ in range(10):
-        time.sleep(0.05)
+        clock.advance(0.05, wd)
         wd.beat()
     assert fired == []
-    time.sleep(0.6)
+    clock.advance(0.6, wd)
     wd.stop()
     assert fired == [HANG_EXIT_CODE]
 
 
-def test_first_interval_grace_covers_the_kernel_builds():
+def test_first_interval_grace_covers_the_kernel_builds(clock):
     wd, fired = _make(0.1, first_grace=10.0)
     wd.start()
-    time.sleep(0.35)             # > timeout, < timeout * grace
+    clock.advance(0.35, wd)      # > timeout, < timeout * grace
     assert fired == []
     wd.beat()                    # the grace collapses to 1x after the first beat
-    time.sleep(0.4)
+    clock.advance(0.4, wd)
     wd.stop()
     assert fired == [HANG_EXIT_CODE]
 
@@ -54,11 +64,12 @@ def test_disabled_at_zero_timeout():
     assert fired == []
 
 
-def test_stop_prevents_firing():
+def test_stop_prevents_firing(clock):
     wd, fired = _make(0.15, first_grace=1.0)
     wd.start()
     wd.stop()
-    time.sleep(0.4)
+    wd._thread.join(10)
+    clock.advance(0.4, wd)
     assert fired == []
 
 
