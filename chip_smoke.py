@@ -33,6 +33,16 @@ exit code:
   train    two Adam epochs through main_torch.py's own functions at the
            default width, with the launch counters read around them, then one
            sample step on the route that uses the third kernel;
+  sample_graph the sample step replayed as one CUDA graph against the same
+           step run eagerly, from one generator state: states, walkers,
+           accept rates, the generator's state and the launch counters (a
+           replay's read from the graph's kernel nodes) bit for bit, also
+           after a set_state between replays and on the --mc_d2_kernel
+           route; --slow_logp left eager; torch.multinomial's checks as
+           device flags; the memory a captured step keeps allocated and
+           reserves in its pool, none allocated by a replay;
+           ``python3 chip_smoke.py --sample_graph_only`` runs this phase
+           alone;
   train_default main.py's default command line (no --hutchinson: the exact
            Laplacian of log|det J|) for two Adam epochs at the same width,
            with its launch counters, seconds by phase and peak memory;
@@ -115,7 +125,7 @@ from coulombgas_tpu_torch.models.ferminet import FermiNet, FermiNetConfig, init_
 from coulombgas_tpu_torch.io.checkpoint import load_data
 from coulombgas_tpu_torch.io.convert import flow_from_numpy, ravel_params, van_from_numpy
 from coulombgas_tpu_torch.ops import (
-    _build, cuda_flow_d2, cuda_flow_jac, cuda_flow_large, cuda_fused_logp, cuda_logdet,
+    _build, counters, cuda_flow_d2, cuda_flow_jac, cuda_flow_large, cuda_fused_logp, cuda_logdet,
 )
 from coulombgas_tpu_torch.ops.logdet import planewave_gram_embed
 from coulombgas_tpu_torch.physics.orbitals import sp_orbitals, twist_sort
@@ -1073,16 +1083,13 @@ def k3_shapes(J, A_stacked):
 
 
 def reset_counts():
-    cuda_flow_jac.launches = cuda_fused_logp.launches = cuda_logdet.launches = 0
-    cuda_flow_large.launches = 0
-    for name in cuda_flow_d2.launches:
-        cuda_flow_d2.launches[name] = 0
+    counters.reset()
 
 
 def read_counts():
-    return dict({"flow_u_jac": cuda_flow_jac.launches, "fused_logp": cuda_fused_logp.launches,
-                 "chol_logdet": cuda_logdet.launches,
-                 "flow_u_jac_large": cuda_flow_large.launches}, **cuda_flow_d2.launches)
+    """Each kernel's runs since ``reset_counts``: eager launches, and a
+    graph replay's kernel nodes as read from the captured graph."""
+    return dict(counters.launches)
 
 
 def phase_train():
@@ -1126,10 +1133,10 @@ def phase_train():
     logp3 = make_logp_fast(trainer.sp_indices, trainer.L, use_fused=False, use_flow_kernel=False)
     sample3 = main_torch.make_sample_step(
         trainer.sampler, logp3, args.mc_steps, args.mc_stddev, trainer.L, args.batch)
-    before = cuda_logdet.launches
+    before = counters.launches["chol_logdet"]
     x0 = trainer.x.clone()
     si, x3, acc3 = sample3(trainer.van, trainer.flow, trainer.x, trainer.generator)
-    route3 = cuda_logdet.launches - before
+    route3 = counters.launches["chol_logdet"] - before
     check(route3 == 51, "chol_logdet launches %d on the unfused route, expected 51" % route3)
     lp_fused = trainer.logp(x3, trainer.flow, si)
     lp_chol = logp3(x3, trainer.flow, si)
@@ -1141,6 +1148,162 @@ def phase_train():
           "logp_max_abs_diff_vs_fused": err, "launches_on_this_route": route3,
           "launches_main_path": counts, "peak_GiB": round(peak_gib, 3)})
     return counts
+
+
+def phase_sample_graph(steps: int = 4):
+    """The sample step replayed as one CUDA graph against the same step run
+    eagerly (a twin of the Metropolis log-density without the graph-safe
+    mark), on the trainer of main.py's --hutchinson line: from one generator
+    state, ``steps`` graphed steps (one capture, then replays) and ``steps``
+    eager ones, bit for bit in states, walkers, accept rates, the generator's
+    state and the launch counters (a replay counts the kernel nodes of the
+    captured graph: 51 of K1 or K5 and of K2 a step); a ``set_state``
+    between replays (the tripwire's revert, a resume); the --mc_d2_kernel
+    route graphed too, and --slow_logp's left eager; torch.multinomial's
+    checks as device flags; the memory a captured step keeps allocated and
+    the pool it reserves, and both steps' wall time."""
+    import tempfile
+
+    import main_torch
+    from coulombgas_tpu_torch.models.ferminet import ferminet_apply
+    from coulombgas_tpu_torch.sampling.autoregressive import drawable
+    from coulombgas_tpu_torch.train.train import make_sample_step, sample_graph
+    from coulombgas_tpu_torch.wavefunction.logpsi import make_logp, make_logpsi
+
+    with tempfile.TemporaryDirectory() as out:
+        args = main_torch.parse_args(["--folder", "data/interacting/", "--hutchinson"])
+        tr = main_torch.build_trainer(args, out_folder=out)
+    check(main_torch.sample_graph_blocker(tr.logp, DEV) == "",
+          "the main path's sample step would not be graphed")
+    van, flow, B = tr.van, tr.flow, args.batch
+
+    def pair(logp):
+        """(graphed, eager) sample steps on ``logp``: the eager one's
+        log-density is the same closure without the mark."""
+        def unmarked(x, f, si):
+            return logp(x, f, si)
+        return [make_sample_step(tr.sampler, lp, args.mc_steps, args.mc_stddev, tr.L, B)
+                for lp in (logp, unmarked)]
+
+    def run(step, gen, state, x, k):
+        gen.set_state(state)
+        reset_counts()
+        outs = []
+        for _ in range(k):
+            si, x, acc = step(van, flow, x, gen)
+            outs.append((si, x, acc))
+        torch.cuda.synchronize()
+        return outs, gen.get_state(), read_counts()
+
+    def same(a, b):
+        return all(torch.equal(p, q) for ra, rb in zip(a, b) for p, q in zip(ra, rb))
+
+    gen_g, gen_e = torch.Generator(DEV).manual_seed(7), torch.Generator(DEV)
+    for _ in range(3):  # walkers off the uniform start
+        _, tr.x, _ = tr.sample_step(van, flow, tr.x, gen_g)
+    x0, s0 = tr.x.clone(), gen_g.get_state()
+    report = {}
+    for route, logp in (("flow kernel", tr.logp),
+                        ("--mc_d2_kernel", make_logp_fast(tr.sp_indices, tr.L, use_d2_flow=True))):
+        graphed, eager = pair(logp)
+        before = dict(sample_graph)
+        outs_g, end_g, counts_g = run(graphed, gen_g, s0, x0, steps)
+        moved = {k: sample_graph[k] - before[k] for k in sample_graph}
+        outs_e, end_e, counts_e = run(eager, gen_e, s0, x0, steps)
+        check(moved == {"captures": 1, "replays": steps - 1, "eager": 0},
+              "%s: sample_graph moved %s over %d steps" % (route, moved, steps))
+        check(same(outs_g, outs_e) and torch.equal(end_g, end_e),
+              "%s: graphed and eager sample steps differ" % route)
+        kernel = "flow_u_jac" if route == "flow kernel" else "flow_u_jac_d2"
+        check(counts_g == counts_e and counts_g[kernel] == 51 * steps
+              and counts_g["fused_logp"] == 51 * steps,
+              "%s: launch counters graphed %s, eager %s" % (route, counts_g, counts_e))
+        # the tripwire's revert: the generator set back between two replays
+        x1, s1 = outs_g[-1][1], end_g
+        gen_g.set_state(s1)
+        again = [graphed(van, flow, x1, gen_g)]
+        gen_g.set_state(s1)
+        again.append(graphed(van, flow, x1, gen_g))
+        gen_e.set_state(s1)
+        ref = [eager(van, flow, x1, gen_e)]
+        check(same(again[:1], again[1:]) and same(again[:1], ref)
+              and torch.equal(gen_g.get_state(), gen_e.get_state()),
+              "%s: replays after set_state differ from the eager step" % route)
+        report[route] = {"accept_rates": [float(o[2]) for o in outs_g], "launches": counts_g}
+
+    # --slow_logp: no mark, so eager; at a batch its jacfwd and slogdet fit
+    slow = make_logp(make_logpsi(ferminet_apply, tr.sp_indices, tr.L))
+    check(main_torch.sample_graph_blocker(slow, DEV) != "", "--slow_logp would be graphed")
+    before = dict(sample_graph)
+    step = make_sample_step(tr.sampler, slow, 2, args.mc_stddev, tr.L, 256)
+    step(van, flow, x0[:256], gen_e)
+    check(sample_graph == dict(before, eager=before["eager"] + 1),
+          "--slow_logp: sample_graph %s from %s" % (sample_graph, before))
+
+    # torch.multinomial's checks, as flags on the card (a device-side assert
+    # would end the process)
+    good = torch.full((64, 81), 1 / 81, device=DEV)
+    flags = {}
+    for kind, val, at in (("good", None, None), ("nan", float("nan"), (5, 7)),
+                          ("inf", float("inf"), (0, 0)), ("negative", -1e-3, (63, 80)),
+                          ("zero_row", 0.0, 9)):
+        probs = good.clone()
+        if at is not None:
+            probs[at] = val
+        low, high = torch.aminmax(probs)
+        f = drawable(low[None], high[None], probs.sum(-1)[None])
+        flags[kind] = [bool(f[0]), bool(f[1])]
+    check(flags == {"good": [True, True], "nan": [False, True], "inf": [False, True],
+                    "negative": [False, True], "zero_row": [True, False]},
+          "torch.multinomial's checks on the card: %s" % flags)
+
+    # memory: a captured step keeps the capture stream's cuBLAS workspace and
+    # its static walkers and outputs allocated, and its pool reserves the
+    # step's intermediates; a replay allocates nothing
+    graphed, eager = pair(tr.logp)
+    gen = torch.Generator(DEV).manual_seed(11)
+    eager(van, flow, x0, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    at = torch.cuda.memory_allocated()
+    out = eager(van, flow, x0, gen)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() - at
+    static = x0.nbytes + sum(t.nbytes for t in out)
+    del out
+
+    def held():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # reserved: live segments and the graph's pool
+        return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+    base = held()
+    graphed(van, flow, x0, gen)  # the capture
+    after_capture = held()
+    for _ in range(3):
+        graphed(van, flow, x0, gen)
+    after_replays = held()
+    allocated, pool = (c - b for c, b in zip(after_capture, base))
+    check(after_replays[0] <= after_capture[0] and after_replays[1] == after_capture[1],
+          "replays allocated: %s after the capture, %s after 3 replays"
+          % (after_capture, after_replays))
+    # the pool holds one step's intermediates (at most twice over for the
+    # caching allocator's rounding of segments) beside what stays allocated
+    check(pool <= allocated + 2 * eager_peak,
+          "a captured sample step reserves %d bytes (%d allocated, an eager step's peak %d)"
+          % (pool, allocated, eager_peak))
+    walls = {"eager": [], "graphed": []}
+    for name in ("eager", "graphed", "graphed", "eager", "eager", "graphed"):
+        step = graphed if name == "graphed" else eager
+        torch.cuda.synchronize()
+        t0 = time.time()
+        step(van, flow, x0, gen)
+        torch.cuda.synchronize()
+        walls[name].append(round(1e3 * (time.time() - t0), 2))
+    emit({"phase": "sample_graph", "steps": steps, "routes": report, "check_flags": flags,
+          "graph_allocated_bytes": allocated, "graph_reserved_bytes": pool,
+          "static_bytes": static, "eager_step_peak_bytes": eager_peak, "step_wall_ms": walls,
+          "counters": dict(sample_graph)})
 
 
 def phase_train_default():
@@ -1931,6 +2094,12 @@ def main():
         rank, world, port = (int(a) for a in sys.argv[2:5])
         dist_rank_main(rank, world, port, sys.argv[5])
         return
+    if sys.argv[1:] == ["--sample_graph_only"]:
+        # the sample step's CUDA graph alone
+        smi = phase_device()
+        phase_sample_graph()
+        print(smi, flush=True)
+        return
     if sys.argv[1:] == ["--dist_only"]:
         # the dist phase alone, for a machine with several cards
         smi = phase_device()
@@ -1942,6 +2111,7 @@ def main():
     phase_build()
     rows = phase_kernels()
     counts = phase_train()
+    phase_sample_graph()
     counts_default, tr_default = phase_train_default()
     counts_engines = phase_engines(tr_default)
     del tr_default

@@ -32,14 +32,12 @@ import torch
 
 from ..models.ferminet import FermiNet
 from ..models.ferminet_jac import ferminet_apply_and_jac_d2, ferminet_apply_jac_lap_d2
+from . import counters
 from ._build import SMEM_LIMIT_BYTES, check_launch, load_library
 from .cuda_flow_jac import pack_flow_params
 
 __all__ = ["flow_u_jac_d2_cuda", "flow_u_jac_lap_d2_cuda", "flow_u_jac_d2_plain",
-           "flow_u_jac_lap_d2_plain", "flow_d2_fits", "flow_d2_smem_bytes", "launches"]
-
-# Wrapper calls that launched a kernel, by entry point.
-launches = {"flow_u_jac_d2": 0, "flow_u_jac_lap_d2": 0}
+           "flow_u_jac_lap_d2_plain", "flow_d2_fits", "flow_d2_smem_bytes"]
 
 
 def flow_u_jac_d2_plain(flow: FermiNet, x):
@@ -128,7 +126,7 @@ def _launch(flow: FermiNet, x, lap: bool):
             code = lib.cg_flow_d2_u_jac(x.data_ptr(), params.data_ptr(), u.data_ptr(),
                                         J.data_ptr(), *tail, stream)
     check_launch(code, name)
-    launches[name] += 1
+    counters.launched(name)
     return (u, J, lap_u) if lap else (u, J)
 
 

@@ -19,13 +19,11 @@ import torch
 
 from ..models.ferminet import FermiNet
 from ..models.ferminet_jac import ferminet_apply_and_jac
+from . import counters
 from ._build import SMEM_LIMIT_BYTES, check_launch, load_library
 
 __all__ = ["flow_u_jac_cuda", "flow_u_jac_plain", "flow_jac_fits",
-           "flow_jac_smem_bytes", "pack_flow_params", "launches"]
-
-# Number of kernel launches made by ``flow_u_jac_cuda`` (one per call).
-launches = 0
+           "flow_jac_smem_bytes", "pack_flow_params"]
 
 
 def flow_u_jac_plain(flow: FermiNet, x):
@@ -74,7 +72,6 @@ def flow_u_jac_cuda(flow: FermiNet, x):
     A CUDA tensor must be f32 and is handled by the kernel (or this raises);
     a CPU tensor goes through the plain version.
     """
-    global launches
     if x.ndim != 3:
         raise ValueError("expected x (B, n, dim), got %s" % (tuple(x.shape),))
     if not x.is_cuda:
@@ -108,5 +105,5 @@ def flow_u_jac_cuda(flow: FermiNet, x):
             cfg.depth, cfg.spsize, cfg.tpsize, float(cfg.L),
             torch.cuda.current_stream().cuda_stream)
     check_launch(code, "flow_u_jac")
-    launches += 1
+    counters.launched("flow_u_jac")
     return u, J

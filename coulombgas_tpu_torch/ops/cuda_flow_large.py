@@ -24,13 +24,11 @@ import torch
 
 from ..models.ferminet import FermiNet, softplus
 from ..models.ferminet_jac import _assemble_jac, _pair_feature_grads
+from . import counters
 from ._build import SMEM_LIMIT_BYTES, check_launch, load_library
 
 __all__ = ["flow_u_jac_large_cuda", "flow_u_jac_large_ref", "flow_large_fits",
-           "flow_large_smem_bytes", "launches"]
-
-# Number of wrapper calls that launched the kernel (one launch a call).
-launches = 0
+           "flow_large_smem_bytes"]
 
 
 def _check_depth(flow: FermiNet):
@@ -122,7 +120,6 @@ def flow_u_jac_large_cuda(flow: FermiNet, x):
     A CUDA tensor must be f32 and is handled by the kernel in one launch (or
     this raises); a CPU tensor goes through the plain version.
     """
-    global launches
     if x.ndim != 3:
         raise ValueError("expected x (B, n, dim), got %s" % (tuple(x.shape),))
     if x.requires_grad:
@@ -154,5 +151,5 @@ def flow_u_jac_large_cuda(flow: FermiNet, x):
                                     J.data_ptr(), B, n, dim, S, T, float(cfg.L),
                                     torch.cuda.current_stream().cuda_stream)
     check_launch(code, "flow_u_jac_large")
-    launches += 1
+    counters.launched("flow_u_jac_large")
     return u, J

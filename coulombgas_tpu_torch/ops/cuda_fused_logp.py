@@ -20,14 +20,12 @@ import math
 
 import torch
 
+from . import counters
 from ._build import SMEM_LIMIT_BYTES, check_launch, load_library
 from .logdet import PIVOT_FLOOR, chol_logdet_ref
 
 __all__ = ["fused_logp_cuda", "fused_logp_plain", "fused_fits",
-           "fused_smem_bytes", "launches"]
-
-# Number of kernel launches made by ``fused_logp_cuda``.
-launches = 0
+           "fused_smem_bytes"]
 
 
 def fused_smem_bytes(n: int, dim: int) -> int:
@@ -89,7 +87,6 @@ def fused_logp_cuda(u, kvec, J, L: float):
     CUDA tensors must be f32 and are handled by the kernel (or this raises);
     CPU tensors go through the plain version.
     """
-    global launches
     B, n, dim = u.shape
     nd = n * dim
     if kvec.shape != u.shape or J.shape != (B, nd, nd):
@@ -112,5 +109,5 @@ def fused_logp_cuda(u, kvec, J, L: float):
             u.data_ptr(), kvec.data_ptr(), J.data_ptr(), out.data_ptr(), B, n, dim,
             float(L) ** (-dim / 2), torch.cuda.current_stream().cuda_stream)
     check_launch(code, "fused_logp")
-    launches += 1
+    counters.launched("fused_logp")
     return out

@@ -22,14 +22,13 @@ from typing import NamedTuple
 
 import torch
 
+from . import counters
 from ._build import SMEM_LIMIT_BYTES, check_launch, load_library
 from .logdet import chol_logdet_ref
 
-__all__ = ["chol_logdet_cuda", "chol_logdet_plain", "chol_logdet_fits", "launches",
+__all__ = ["chol_logdet_cuda", "chol_logdet_plain", "chol_logdet_fits",
            "K3Plan", "k3_plan", "k3_plans", "k3_schedule", "k3_smem_bytes", "K3_MAX_M"]
 
-# Number of kernel launches made by ``chol_logdet_cuda``.
-launches = 0
 
 # The plain PyTorch version of the kernel, same signature.
 chol_logdet_plain = chol_logdet_ref
@@ -204,7 +203,6 @@ def _launch(A, plan: K3Plan):
     under ``plan``, which must be for A's m and batch (the wrapper's cached
     ``k3_plan``; the smoke and ``scripts/compare_kernels_torch.py`` also run
     the other plans of ``k3_plans``)."""
-    global launches
     B, m, _ = A.shape
     if (plan.m, plan.batch) != (m, B):
         raise ValueError("plan for m %d, batch %d given for m %d, batch %d"
@@ -214,7 +212,7 @@ def _launch(A, plan: K3Plan):
         code = _lib().cg_chol_logdet(A.data_ptr(), out.data_ptr(), B, m, plan.warps, plan.groups,
                                      plan.smem, plan.grid, torch.cuda.current_stream().cuda_stream)
     check_launch(code, "chol_logdet")
-    launches += 1
+    counters.launched("chol_logdet")
     return out
 
 

@@ -12,6 +12,8 @@ m > state_idx[i-1]  and  m <= M - n + i.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -24,9 +26,42 @@ from ..models.transformer import (
     transformer_decode_step,
 )
 
-__all__ = ["make_autoregressive_sampler", "make_classical_score"]
+__all__ = ["make_autoregressive_sampler", "make_classical_score", "draw",
+           "drawable", "assert_drawable"]
 
 _NEG_INF = -1e30
+# torch.multinomial's messages for the two checks of its probabilities
+BAD_PROBS = "probability tensor contains either `inf`, `nan` or element < 0"
+ZERO_ROW = "invalid multinomial distribution (sum of probabilities <= 0)"
+
+
+def draw(probs, generator):
+    """One index a row of ``probs`` (B, M), the index and the generator's
+    state after it equal to ``torch.multinomial(probs, 1, generator=generator)
+    [:, 0]``: ATen's path for one sample, argmax of p / q with q ~ Exp(1),
+    written out without the two host reads with which ``torch.multinomial``
+    checks ``probs`` first.  The checks are ``drawable``'s, on the device."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
+
+
+def drawable(lows, highs, row_sums):
+    """``torch.multinomial``'s two checks of its probabilities as device
+    flags, over draws with least and largest probabilities ``lows``,
+    ``highs`` (draws,) (``torch.aminmax``, which keeps a NaN) and row sums
+    ``row_sums`` (draws, B): (no entry inf, NaN or negative; no row summing
+    to zero)."""
+    finite = ((highs < math.inf) & (lows >= 0)).all()
+    return finite, (row_sums != 0).all()
+
+
+def assert_drawable(lows, highs, row_sums):
+    """Raise ``torch.multinomial``'s error where ``drawable`` fails: at once
+    on the CPU; on the card at the next synchronisation, as the device-side
+    assert of ``torch.multinomial``'s other path does, with no host read."""
+    finite, nonzero = drawable(lows, highs, row_sums)
+    torch._assert_async(finite, BAD_PROBS)
+    torch._assert_async(nonzero, ZERO_ROW)
 
 
 def make_autoregressive_sampler(sp_indices, n: int, num_states: int,
@@ -49,9 +84,14 @@ def make_autoregressive_sampler(sp_indices, n: int, num_states: int,
     M = num_states
     sp_indices = np.asarray(sp_indices)
 
+    tables = {}  # the embedding table once per device and dtype: no host copy a draw
+
     def _table(van: Transformer):
         p = van.x1hat
-        return torch.as_tensor(sp_indices, dtype=p.dtype, device=p.device)
+        if (p.device, p.dtype) not in tables:
+            tables[p.device, p.dtype] = torch.as_tensor(sp_indices, dtype=p.dtype,
+                                                        device=p.device)
+        return tables[p.device, p.dtype]
 
     def _mask(state_idx):
         """(B, n, M) boolean mask of allowed states given the sampled prefix."""
@@ -68,10 +108,6 @@ def make_autoregressive_sampler(sp_indices, n: int, num_states: int,
         m = torch.arange(M, device=prev_idx.device)
         return (m > prev_idx[:, None]) & (m <= M - n + i)
 
-    def _draw(masked_logits, generator):
-        probs = torch.softmax(masked_logits, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
-
     @torch.no_grad()
     def sampler(van: Transformer, generator, batch: int):
         """Draw a batch of occupation states with KV-cached decoding.
@@ -86,13 +122,19 @@ def make_autoregressive_sampler(sp_indices, n: int, num_states: int,
         neg = p.new_full((), _NEG_INF)
         prev = torch.full((batch,), -1, dtype=torch.long, device=p.device)
         logits = p.expand(batch, M)
-        samples = []
+        samples, lows, highs, row_sums = [], [], [], []
         for i in range(n):
             if i > 0:
                 logits, kc, vc = transformer_decode_step(van, table[prev], i - 1, kc, vc)
-            masked = torch.where(_row_mask(i, prev), logits, neg)
-            prev = _draw(masked, generator)
+            probs = torch.softmax(torch.where(_row_mask(i, prev), logits, neg), dim=-1)
+            prev = draw(probs, generator)
             samples.append(prev)
+            low, high = torch.aminmax(probs)
+            lows.append(low)
+            highs.append(high)
+            row_sums.append(probs.sum(dim=-1))
+        # torch.multinomial's checks of every draw, once a batch and on the device
+        assert_drawable(torch.stack(lows), torch.stack(highs), torch.stack(row_sums))
         return torch.stack(samples, dim=1)
 
     def log_prob(van: Transformer, state_idx):

@@ -16,11 +16,13 @@ from __future__ import annotations
 import torch
 
 from ..io.convert import ravel_params, unravel_like
+from ..ops import counters
 from ..optim.sr import HybridFisherSR, fishers_from_scores
 from ..parallel import mesh
 from ..sampling.mcmc import mcmc
 
-__all__ = ["make_sample_step", "make_accumulate_and_apply", "init_accumulators",
+__all__ = ["make_sample_step", "sample_graph", "sample_graph_blocker", "graph_key",
+           "make_accumulate_and_apply", "init_accumulators",
            "apply_raveled_update", "chunk_layout", "reduce_accumulators",
            "DATA_KEYS", "FISHER_KEYS"]
 
@@ -30,21 +32,97 @@ DATA_KEYS = ("F_mean", "F2_mean", "E_mean", "E2_mean", "K_mean",
 FISHER_KEYS = ("classical_fisher", "quantum_fisher", "quantum_score_mean")
 
 
+# How this process's sample steps ran: CUDA graphs captured, their replays,
+# and steps run eagerly where a graph is not safe (``sample_graph_blocker``).
+sample_graph = {"captures": 0, "replays": 0, "eager": 0}
+
+
+def sample_graph_blocker(logp, device) -> str:
+    """Why the sample step runs eagerly for walkers on ``device`` with the
+    Metropolis log-density ``logp``; '' where it replays as one CUDA graph:
+    on CUDA, with a log-density that marks itself ``graph_safe`` (every
+    launch on the current stream, no host read: ``make_logp_fast``'s)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "walkers on the %s" % device.type
+    if not getattr(logp, "graph_safe", False):
+        return "the log-density is not marked graph-safe"
+    return ""
+
+
+def graph_key(van, flow, x, generator) -> tuple:
+    """What a captured sample step holds for: the walkers' shape, dtype and
+    device, the generator, and the storage of every parameter, which the
+    replays read in place (an optimizer step, ``apply_raveled_update`` and
+    ``load_state_dict`` keep it)."""
+    return (tuple(x.shape), x.dtype, x.device, generator,
+            tuple(p.data_ptr() for p in van.parameters()),
+            tuple(p.data_ptr() for p in flow.parameters()))
+
+
 def make_sample_step(sampler, logp, mc_steps: int, mc_stddev, L, batch: int):
     """Joint sampling of occupations (exact) and coordinates (MCMC).
 
     Returns ``sample_step(van, flow, x, generator) -> (state_indices, x,
     accept_rate)``; coordinates are wrapped back into [0, L).  ``generator``
     lives on the walkers' device and serves both samplers.
+
+    Where ``sample_graph_blocker`` finds nothing against it, the whole step
+    (the VAN's decodes and draws, the Metropolis sweeps, the wrap) is
+    captured as one CUDA graph at the first call of a ``graph_key`` and
+    replayed at the next ones: the same launches from the same generator
+    state, so the same numbers as the eager step.  The generator is
+    registered with the graph, so a replay draws from its state at that
+    moment and advances it as the eager step would (``set_state`` between
+    replays holds).  A capturing call runs and returns the eager step, which
+    warms up what the capture reads, then captures on a stream of its own;
+    a replay returns copies of the graph's outputs.  The capture stream's
+    cuBLAS workspace and the graph's static walkers and outputs stay
+    allocated; its pool keeps the step's intermediates.
     """
 
-    @torch.no_grad()
-    def sample_step(van, flow, x, generator):
+    def step(van, flow, x, generator):
         state_indices = sampler(van, generator, batch)
         x, accept_rate = mcmc(
             lambda xx: logp(xx, flow, state_indices), x, generator, mc_steps, mc_stddev)
         x = x - L * torch.floor(x / L)
         return state_indices, x, accept_rate
+
+    captured = {}  # key, graph, static walkers and outputs, kernels a replay runs
+    streams = {}  # the capture stream a device: every capture shares one workspace
+
+    def capture(van, flow, x, generator, key):
+        out = step(van, flow, x, generator)
+        captured.clear()  # the previous graph and its memory pool go first
+        static_x = x.clone()
+        if x.device not in streams:
+            streams[x.device] = torch.cuda.Stream(x.device)
+        side = streams[x.device]
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.register_generator_state(generator)
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            static_out = step(van, flow, static_x, generator)
+        graph.instantiate()
+        captured.update(key=key, graph=graph, x=static_x, out=static_out,
+                        launches=counters.graph_launches(graph))
+        sample_graph["captures"] += 1
+        return out
+
+    @torch.no_grad()
+    def sample_step(van, flow, x, generator):
+        if sample_graph_blocker(logp, x.device):
+            sample_graph["eager"] += 1
+            return step(van, flow, x, generator)
+        key = graph_key(van, flow, x, generator)
+        with torch.cuda.device(x.device):
+            if captured.get("key") != key:
+                return capture(van, flow, x, generator, key)
+            captured["x"].copy_(x)
+            captured["graph"].replay()
+            counters.replayed(captured["launches"])
+            sample_graph["replays"] += 1
+            return tuple(t.clone() for t in captured["out"])
 
     return sample_step
 

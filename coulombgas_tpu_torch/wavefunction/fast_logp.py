@@ -101,7 +101,9 @@ def make_logp_fast(
     ``ValueError`` — a requested kernel launches or the call fails, nothing
     else stands in for it.  ``use_fused`` and ``use_flow_kernel`` left at
     None are chosen by size (``choose_route``); ``logp.route(n, dim, cfg,
-    device)`` names the route the closure takes there.
+    device)`` names the route the closure takes there.  ``logp.graph_safe``
+    is True: the sample step may capture the closure in a CUDA graph
+    (``train.train.sample_graph_blocker``).
     """
     if use_d2_flow and use_fused is False:
         raise ValueError("use_d2_flow requires use_fused")
@@ -182,4 +184,7 @@ def make_logp_fast(
         ])
 
     logp.route = route
+    # every route launches on the current stream and reads nothing back to
+    # the host once its tables and route are cached: a CUDA graph may hold it
+    logp.graph_safe = True
     return logp

@@ -88,7 +88,7 @@ from coulombgas_tpu_torch.train.loss import make_loss
 from coulombgas_tpu_torch.train.pretrain import pretrain
 from coulombgas_tpu_torch.train.train import (
     apply_raveled_update, chunk_layout, init_accumulators, make_accumulate_and_apply,
-    make_sample_step, reduce_accumulators,
+    make_sample_step, reduce_accumulators, sample_graph_blocker,
 )
 from coulombgas_tpu_torch.train.tripwire import UpdateTripwire
 from coulombgas_tpu_torch.utils.watchdog import StepWatchdog
@@ -568,6 +568,8 @@ def build_trainer(args, out_folder=None) -> Trainer:
         route = logp.route(n, dim, flow_cfg, device)
     print("logp route: %s%s" % (route, " (plain versions on the CPU)"
                                 if device.type == "cpu" and not args.slow_logp else ""))
+    why = sample_graph_blocker(logp, device)
+    print("sample step: %s" % ("eager (%s)" % why if why else "CUDA graph"))
 
     # ---- Ewald -------------------------------------------------------------
     G = kpoints(dim, args.Gmax)

@@ -15,7 +15,7 @@ import torch
 
 import coulombgas_tpu as cg
 from coulombgas_tpu.wavefunction.fast_logp import make_logp_fast as jax_make_logp_fast
-from coulombgas_tpu_torch.ops import cuda_flow_jac, cuda_fused_logp, cuda_logdet
+from coulombgas_tpu_torch.ops import counters
 from coulombgas_tpu_torch.wavefunction.fast_logp import make_logp_fast
 
 from _torch_helpers import flow_pair, orbitals, t, walkers
@@ -48,12 +48,12 @@ def _jax_reference(cfg, params, sp, x, si):
 def test_logp_routes_match_jax(route, dim):
     n, sp, cfg, params, flow, x, si = _case(dim)
     ref = _jax_reference(cfg, params, sp, x, si)
-    counts = (cuda_flow_jac.launches, cuda_fused_logp.launches, cuda_logdet.launches)
+    counts = dict(counters.launches)
     got = make_logp_fast(sp, cfg.L, **ROUTES[route])(t(x), flow, t(si))
     assert not got.requires_grad and got.shape == (x.shape[0],)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-8, atol=1e-8)
     # CPU tensors: no kernel was launched
-    assert counts == (cuda_flow_jac.launches, cuda_fused_logp.launches, cuda_logdet.launches)
+    assert counts == counters.launches
 
 
 def test_logp_matches_slogdet_oracle():

@@ -28,7 +28,7 @@ from coulombgas_tpu_torch.models.ferminet_jac import (
     ferminet_apply_and_jac, ferminet_apply_and_jac_d2, ferminet_apply_jac_lap,
     ferminet_apply_jac_lap_d2, select_flow_jac,
 )
-from coulombgas_tpu_torch.ops import cuda_flow_d2, cuda_fused_logp
+from coulombgas_tpu_torch.ops import counters, cuda_flow_d2
 from coulombgas_tpu_torch.wavefunction.fast_laplacian import (
     make_logpsi_grad_laplacian_analytic,
 )
@@ -125,10 +125,10 @@ def test_plain_versions_match_pallas_d2_kernels_interpret(lap, dim):
 def test_wrappers_take_plain_versions_only_for_cpu_tensors():
     _, _, flow = flow_pair(2, 8, 8, 5, 2)
     x = t(_x(5, 2))
-    before = dict(cuda_flow_d2.launches)
+    before = dict(counters.launches)
     u, J = cuda_flow_d2.flow_u_jac_d2_cuda(flow, x)
     ul, Jl, lap = cuda_flow_d2.flow_u_jac_lap_d2_cuda(flow, x)
-    assert cuda_flow_d2.launches == before  # no kernel was launched
+    assert counters.launches == before  # no kernel was launched
     assert not (u.requires_grad or J.requires_grad or lap.requires_grad)
     with torch.no_grad():
         ref = cuda_flow_d2.flow_u_jac_lap_d2_plain(flow, x)
@@ -154,11 +154,11 @@ def test_logp_with_d2_flow_matches_slogdet_oracle():
     n, sp, cfg, params, flow, x, si = _logp_case()
     slow = cg.make_logp(cg.make_logpsi(lambda p, q: cg.ferminet_apply(p, cfg, q), sp, cfg.L))
     ref = np.asarray(jax.jit(slow)(jnp.asarray(x), params, jnp.asarray(si)))
-    counts = (dict(cuda_flow_d2.launches), cuda_fused_logp.launches)
+    counts = dict(counters.launches)
     got = make_logp_fast(sp, cfg.L, use_d2_flow=True)(t(x), flow, t(si))
     assert not got.requires_grad
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-8, atol=1e-8)
-    assert counts == (cuda_flow_d2.launches, cuda_fused_logp.launches)
+    assert counts == counters.launches
     # chunked evaluation gives the same numbers
     chunked = make_logp_fast(sp, cfg.L, use_d2_flow=True, chunk=3)(t(x), flow, t(si))
     np.testing.assert_allclose(chunked.numpy(), got.numpy(), rtol=1e-12, atol=1e-12)

@@ -17,7 +17,7 @@ import torch
 import coulombgas_tpu as cg
 from coulombgas_tpu.ops.pallas_flow_jac import flow_u_jac_pallas_large
 from coulombgas_tpu.wavefunction.fast_logp import make_logp_fast as jax_make_logp_fast
-from coulombgas_tpu_torch.ops import cuda_flow_jac, cuda_flow_large, cuda_fused_logp
+from coulombgas_tpu_torch.ops import counters, cuda_flow_large
 from coulombgas_tpu_torch.wavefunction import fast_logp
 from coulombgas_tpu_torch.wavefunction.fast_logp import make_logp_fast
 
@@ -37,9 +37,9 @@ def test_plain_version_matches_pallas_large_kernels_interpret(dim, n):
     x = _x(n, dim, 9, dtype=np.float32)
     x[0, 1] = x[0, 0]
     u_t, J_t = flow_u_jac_pallas_large(params, cfg, jnp.asarray(x), interpret=True)
-    before = cuda_flow_large.launches
+    before = dict(counters.launches)
     u, J = cuda_flow_large.flow_u_jac_large_cuda(flow, t(x))
-    assert cuda_flow_large.launches == before  # a CPU tensor launches nothing
+    assert counters.launches == before  # a CPU tensor launches nothing
     assert u.shape == (9, n, dim) and J.shape == (9, n * dim, n * dim)
     np.testing.assert_allclose(u.numpy(), np.moveaxis(np.asarray(u_t), -1, 0), atol=1e-5)
     np.testing.assert_allclose(J.numpy(), np.moveaxis(np.asarray(J_t), -1, 0), atol=1e-5)
@@ -75,11 +75,11 @@ def test_logp_with_large_flow_matches_jax_large_flow_route(dtype, tol):
     jax_fn = jax_make_logp_fast(flow_apply, sp, cfg.L, jacobian=lambda p, q: cg.ferminet_apply_and_jac(
         p, cfg, q), pallas_flow_cfg=cfg, use_large_flow=True, fused_interpret=True)
     ref = np.asarray(jax_fn(jnp.asarray(x), params, jnp.asarray(si)))
-    counts = (cuda_flow_large.launches, cuda_fused_logp.launches, cuda_flow_jac.launches)
+    counts = dict(counters.launches)
     got = make_logp_fast(sp, cfg.L, use_large_flow=True)(t(x), flow, t(si))
     assert not got.requires_grad and got.dtype == t(x).dtype
     np.testing.assert_allclose(got.numpy(), ref, rtol=0 if tol > 1e-6 else tol, atol=tol)
-    assert counts == (cuda_flow_large.launches, cuda_fused_logp.launches, cuda_flow_jac.launches)
+    assert counts == counters.launches
     chunked = make_logp_fast(sp, cfg.L, use_large_flow=True, chunk=3)(t(x), flow, t(si))
     np.testing.assert_allclose(chunked.numpy(), got.numpy(), rtol=1e-12, atol=1e-12)
 
