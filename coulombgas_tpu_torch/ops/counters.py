@@ -1,4 +1,5 @@
-"""How many times each hand-written kernel ran on the device, in one place.
+"""How many times each hand-written kernel ran on the device, and what the
+optimizer's apply did on the host, in one place.
 
 ``launches[name]`` counts the runs of kernel ``name`` in this process.  A
 wrapper adds one where it launches its kernel (``launched``); a call made
@@ -6,17 +7,25 @@ while its stream is being captured into a CUDA graph launches nothing and
 adds nothing.  What a captured graph runs is read from the graph itself:
 ``graph_launches`` counts its kernel nodes by the kernel each one runs, and
 each replay adds that count (``replayed``).
+
+``events[name]`` counts how often something happened on the host
+(``count``): ``sr.lu_fallbacks``, the float64 SR's damped Cholesky solves
+that found the matrix not positive definite and fell to LU.
+``spans[name]`` holds the host seconds and calls of a timed region
+(``timed``): ``sr.solve``, an epoch's damped solves of both Fisher blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import re
+import time
 
 import torch
 
 __all__ = ["launches", "launched", "reset", "kernel_counter", "graph_kernels",
-           "graph_launches", "replayed"]
+           "graph_launches", "replayed", "events", "count", "spans", "timed"]
 
 # Each counter's kernel symbol (csrc/): the depth-2 closure kernel's two
 # counters are its instantiations without and with the Laplacian, told apart
@@ -27,6 +36,8 @@ SYMBOLS = {"flow_u_jac": "cg_flow_jac_kernel", "fused_logp": "cg_fused_logp_kern
            "flow_u_jac_lap_d2": "cg_flow_d2_rows_kernel"}
 
 launches = dict.fromkeys(SYMBOLS, 0)
+events = {"sr.lu_fallbacks": 0}
+spans = {}  # name -> {"seconds": s, "calls": k}
 
 
 def launched(name: str):
@@ -39,6 +50,28 @@ def launched(name: str):
 def reset():
     for name in launches:
         launches[name] = 0
+    for name in events:
+        events[name] = 0
+    spans.clear()
+
+
+def count(name: str):
+    """Count one host event ``name``."""
+    events[name] = events.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Add the host seconds of the enclosed block and one call to
+    ``spans[name]``.  Nothing here waits for the device: where the block
+    reads no result back, the seconds are those of its launches."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        span = spans.setdefault(name, {"seconds": 0.0, "calls": 0})
+        span["seconds"] += time.perf_counter() - t0
+        span["calls"] += 1
 
 
 def replayed(counts: dict):

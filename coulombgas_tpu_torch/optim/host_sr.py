@@ -25,6 +25,8 @@ import numpy as np
 import torch
 
 from ..io.convert import ravel_params
+from ..ops import counters
+from ..utils.profiling import annotate
 
 __all__ = ["host_solve_scaled", "host_hybrid_apply", "sym_pack", "sym_unpack",
            "damped_upper", "HostFisherCache"]
@@ -106,10 +108,12 @@ def _scale_step(upd, g, max_norm):
 
 def _damped_solve(A, g):
     """(A already damped) Cholesky solve; LU where the matrix is not
-    numerically positive definite (the centred quantum Fisher can be so)."""
+    numerically positive definite (the centred quantum Fisher can be so),
+    counted in ``counters.events["sr.lu_fallbacks"]``."""
     c, info = torch.linalg.cholesky_ex(A)
     if int(info) == 0:
         return torch.cholesky_solve(g[:, None], c)[:, 0]
+    counters.count("sr.lu_fallbacks")
     upd, info = torch.linalg.solve_ex(A, g)
     return upd if int(info) == 0 else torch.full_like(g, float("nan"))
 
@@ -218,23 +222,25 @@ def host_hybrid_apply(acc, acc_steps, damping, max_norm, cache=None, van=None, f
     grad_flow = grad_flow - data["E_mean"] * score_flow
     qsm = _f64(acc["quantum_score_mean"], device) / acc_steps
 
-    if cache is not None:
-        if "classical_fisher" in acc:  # refresh epoch
-            cache.refresh(acc["classical_fisher"], acc["quantum_fisher"], divisor=acc_steps)
-            upd_flow, diag_flow = cache.solve_quantum(grad_flow, qsm, max_norm)
-        else:
-            cache.age += 1
-            if "quantum_fisher" in acc:  # fresh quantum block on a stale-classical epoch
-                qf = _full_matrix(acc["quantum_fisher"], device) / acc_steps
-                upd_flow, diag_flow = _solve_centred(qf, grad_flow, qsm, damping, max_norm)
-            else:
+    with annotate("sr.solve"), counters.timed("sr.solve"):
+        if cache is not None:
+            if "classical_fisher" in acc:  # refresh epoch
+                cache.refresh(acc["classical_fisher"], acc["quantum_fisher"],
+                              divisor=acc_steps)
                 upd_flow, diag_flow = cache.solve_quantum(grad_flow, qsm, max_norm)
-        upd_van, diag_van = cache.solve_classical(grad_van, max_norm)
-    else:
-        upd_van, diag_van = host_solve_scaled(
-            _full_matrix(acc["classical_fisher"], device) / acc_steps, grad_van, damping, max_norm)
-        qf = _full_matrix(acc["quantum_fisher"], device) / acc_steps
-        upd_flow, diag_flow = _solve_centred(qf, grad_flow, qsm, damping, max_norm)
+            else:
+                cache.age += 1
+                if "quantum_fisher" in acc:  # fresh quantum block on a stale-classical epoch
+                    qf = _full_matrix(acc["quantum_fisher"], device) / acc_steps
+                    upd_flow, diag_flow = _solve_centred(qf, grad_flow, qsm, damping, max_norm)
+                else:
+                    upd_flow, diag_flow = cache.solve_quantum(grad_flow, qsm, max_norm)
+            upd_van, diag_van = cache.solve_classical(grad_van, max_norm)
+        else:
+            cf = _full_matrix(acc["classical_fisher"], device) / acc_steps
+            upd_van, diag_van = host_solve_scaled(cf, grad_van, damping, max_norm)
+            qf = _full_matrix(acc["quantum_fisher"], device) / acc_steps
+            upd_flow, diag_flow = _solve_centred(qf, grad_flow, qsm, damping, max_norm)
     diag = {"gnorm_van": diag_van["gnorm"], "scale_van": diag_van["scale"],
             "gnorm_flow": diag_flow["gnorm"], "scale_flow": diag_flow["scale"]}
     return upd_van, upd_flow, data, diag

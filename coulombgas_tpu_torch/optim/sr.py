@@ -14,7 +14,10 @@ translate to and from a module's parameter list.
 The Fisher build is a (batch x P)^T (batch x P) matrix product and the solves
 are dense P x P (P ~ 1e3-1e4): both go to ``torch.matmul`` / ``torch.linalg``,
 in true f32 on the GPU (TF32 is off, see ``config.py``: a TF32 Fisher at
-lambda_max / damping ~ 6e8 is noise).
+lambda_max / damping ~ 6e8 is noise).  For the float64 solve
+(``optim.host_sr``) ``add_fishers_`` forms and sums the blocks in float64
+instead: a Gram summed in float32 is not positive semi-definite to within the
+damping at n = 57.
 """
 
 from __future__ import annotations
@@ -23,8 +26,11 @@ from typing import Any, NamedTuple
 
 import torch
 
-__all__ = ["fisher_sr", "hybrid_fisher_sr", "fishers_from_scores",
-           "FisherSR", "HybridFisherSR"]
+from ..ops import counters
+from ..utils.profiling import annotate
+
+__all__ = ["fisher_sr", "hybrid_fisher_sr", "fishers_from_scores", "add_fishers_",
+           "quantum_score_mean", "FisherSR", "HybridFisherSR"]
 
 
 def _solve_scaled(fisher, grads_raveled, damping, max_norm, refine: int = 0,
@@ -145,8 +151,32 @@ def fishers_from_scores(classical_score, quantum_score):
     # Re(S^H S) = Sr^T Sr + Si^T Si
     sr_, si_ = quantum_score.real, quantum_score.imag
     quantum_fisher = (sr_.T @ sr_ + si_.T @ si_) / batch
+    return classical_fisher, quantum_fisher, quantum_score_mean(quantum_score)
+
+
+def quantum_score_mean(quantum_score):
+    """The batch mean of S_q (B, P_q) complex as a real (2, P_q) [Re, Im]."""
     qsm = quantum_score.mean(dim=0)
-    return classical_fisher, quantum_fisher, torch.stack([qsm.real, qsm.imag])
+    return torch.stack([qsm.real, qsm.imag])
+
+
+def add_fishers_(classical_fisher, quantum_fisher, classical_score, quantum_score,
+                 weight=1.0):
+    """Add ``weight`` x the batch's Fisher blocks to the two accumulators in
+    place, in the accumulators' precision: the scores are cast to it and
+    their Gram is added by ``addmm_``, so no second (P, P) matrix is formed.
+    The quantum block's Sr^T Sr + Si^T Si is one product of [Sr; Si].
+
+    In float64 the sum is the Gram of the float32 scores to float64
+    rounding, positive semi-definite well within the damping.  Formed and
+    summed in float32 it is not: at n = 57 (P_van 7050) the damped
+    classical block has a negative eigenvalue, and the float64 solve falls
+    from Cholesky to LU and takes a step several times too long."""
+    batch = classical_score.shape[0]
+    s = classical_score.to(classical_fisher.dtype)
+    classical_fisher.addmm_(s.T, s, alpha=weight / batch)
+    q = torch.cat([quantum_score.real, quantum_score.imag]).to(quantum_fisher.dtype)
+    quantum_fisher.addmm_(q.T, q, alpha=weight / batch)
 
 
 class HybridFisherSR(NamedTuple):
@@ -194,12 +224,13 @@ def hybrid_fisher_sr(classical_score_fn, quantum_score_fn, damping, max_norm,
         quantum_fisher = quantum_fisher - (torch.outer(qsm[0], qsm[0])
                                            + torch.outer(qsm[1], qsm[1]))
         scaled_norm = max_norm * max_norm_scale
-        upd_van, diag_van = _solve_scaled(classical_fisher, grad_van, damping, scaled_norm,
-                                          refine=refine, jacobi=jacobi, chol=chol,
-                                          with_diag=True)
-        upd_flow, diag_flow = _solve_scaled(quantum_fisher, grad_flow, damping, scaled_norm,
-                                            refine=refine, jacobi=jacobi, chol=chol,
-                                            with_diag=True)
+        with annotate("sr.solve"), counters.timed("sr.solve"):
+            upd_van, diag_van = _solve_scaled(classical_fisher, grad_van, damping, scaled_norm,
+                                              refine=refine, jacobi=jacobi, chol=chol,
+                                              with_diag=True)
+            upd_flow, diag_flow = _solve_scaled(quantum_fisher, grad_flow, damping,
+                                                scaled_norm, refine=refine, jacobi=jacobi,
+                                                chol=chol, with_diag=True)
         diag = {"gnorm_van": diag_van["gnorm"], "scale_van": diag_van["scale"],
                 "gnorm_flow": diag_flow["gnorm"], "scale_flow": diag_flow["scale"]}
         return (upd_van, upd_flow), diag

@@ -197,20 +197,24 @@ def _rebuild(tree, it):
 
 def all_reduce_mean(tree):
     """The mean over the ranks of every tensor in ``tree`` (a tensor, or
-    lists, tuples and dicts of them, of one dtype), reduced as one flat
-    buffer.  Returns new tensors in the same structure; the inputs are left
-    as they were.  The identity with one rank."""
+    lists, tuples and dicts of them), reduced as one flat buffer per dtype
+    (the float64 solve's Fisher blocks beside float32 gradients).  Returns
+    new tensors in the same structure; the inputs are left as they were.
+    The identity with one rank."""
     size = _MESH.world_size
     if size == 1:
         return tree
     leaves = _leaves(tree)
-    buf = _to_comm(torch.cat([leaf.detach().reshape(-1) for leaf in leaves]))
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
-    buf = (buf / size).to(leaves[0].device)
-    out, at = [], 0
-    for leaf in leaves:
-        out.append(buf[at:at + leaf.numel()].view(leaf.shape))
-        at += leaf.numel()
+    out = [None] * len(leaves)
+    for dtype in dict.fromkeys(leaf.dtype for leaf in leaves):
+        group = [i for i, leaf in enumerate(leaves) if leaf.dtype == dtype]
+        buf = _to_comm(torch.cat([leaves[i].detach().reshape(-1) for i in group]))
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+        buf = (buf / size).to(leaves[group[0]].device)
+        at = 0
+        for i in group:
+            out[i] = buf[at:at + leaves[i].numel()].view(leaves[i].shape)
+            at += leaves[i].numel()
     return _rebuild(tree, iter(out))
 
 

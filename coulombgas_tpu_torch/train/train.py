@@ -17,9 +17,10 @@ import torch
 
 from ..io.convert import ravel_params, unravel_like
 from ..ops import counters
-from ..optim.sr import HybridFisherSR, fishers_from_scores
+from ..optim.sr import HybridFisherSR, add_fishers_, fishers_from_scores, quantum_score_mean
 from ..parallel import mesh
 from ..sampling.mcmc import mcmc
+from ..utils.profiling import annotate
 
 __all__ = ["make_sample_step", "sample_graph", "sample_graph_blocker", "graph_key",
            "make_accumulate_and_apply", "init_accumulators",
@@ -139,13 +140,14 @@ def _zeros_like_params(module):
     return [torch.zeros_like(p) for p in module.parameters()]
 
 
-def init_accumulators(van, flow, sr: bool = False):
+def init_accumulators(van, flow, sr: bool = False, fisher_dtype=None):
     """Zero accumulators for one epoch of gradient accumulation.  Gradients
     and scores are lists in the order of ``module.parameters()``.  With ``sr``
     the Fisher payload is added: ``classical_fisher`` (P_van, P_van),
     ``quantum_fisher`` (P_flow, P_flow) and ``quantum_score_mean`` (2, P_flow)
     [Re, Im], rows and columns in the JAX package's raveled parameter order
-    (``io.convert.ravel_order``)."""
+    (``io.convert.ravel_order``).  The two Fisher blocks are of
+    ``fisher_dtype`` (default: the parameters' dtype)."""
     p = next(flow.parameters())
     acc = {
         "data": {k: torch.zeros((), dtype=p.dtype, device=p.device) for k in DATA_KEYS},
@@ -156,8 +158,8 @@ def init_accumulators(van, flow, sr: bool = False):
     if sr:
         p_van = sum(q.numel() for q in van.parameters())
         p_flow = sum(q.numel() for q in flow.parameters())
-        acc["classical_fisher"] = p.new_zeros(p_van, p_van)
-        acc["quantum_fisher"] = p.new_zeros(p_flow, p_flow)
+        acc["classical_fisher"] = p.new_zeros(p_van, p_van, dtype=fisher_dtype)
+        acc["quantum_fisher"] = p.new_zeros(p_flow, p_flow, dtype=fisher_dtype)
         acc["quantum_score_mean"] = p.new_zeros(2, p_flow)
     return acc
 
@@ -211,7 +213,7 @@ def reduce_accumulators(acc, accept_sum: float = 0.0, leave_out=()):
 
 
 def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int, pieces=None,
-                              sr_opt: HybridFisherSR | None = None):
+                              sr_opt: HybridFisherSR | None = None, fisher_dtype=None):
     """Build (accumulate, apply_update) for one training epoch.
 
     Per-step gradients and scores are accumulated, then normalized by
@@ -235,6 +237,12 @@ def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int, pieces=None
     batch's; where the microbatch divides the share this is ``1 / chunks``.
     None: the whole batch is one piece, with one clip window.  Every rank
     applies rank 0's SR update and diagnostics (``mesh.replicate_update``).
+
+    ``fisher_dtype`` (float64 for the float64 solve, ``optim.host_sr``): the
+    Fisher blocks are formed from the scores and summed over the rounds in
+    that precision, in place (``optim.sr.add_fishers_``); accumulators made
+    in another (``init_accumulators`` without it) are cast at their first
+    round.  None: formed and summed in the scores' precision.
     """
 
     def _grad_pair(lossfn, params):
@@ -257,13 +265,19 @@ def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int, pieces=None
                 # 2 Re mean(S_q conj(Eloc)), in real arithmetic
                 Ec = aux["Eloc_clipped"]
                 grad_flow = 2.0 * (s_q.real.T @ Ec.real + s_q.imag.T @ Ec.imag) / batch
-                cf, qf, qsm = fishers_from_scores(s_c, s_q)
+                if fisher_dtype is None:
+                    with annotate("sr.fisher"):
+                        cf, qf, qsm = fishers_from_scores(s_c, s_q)
+                    fishers = {"classical_fisher": cf, "quantum_fisher": qf}
+                else:  # their Grams are added into the accumulators (_add)
+                    qsm = quantum_score_mean(s_q)
+                    fishers = {"scores": (s_c, s_q)}
                 return {
                     "data": data,
                     "grads": (unravel_like(grad_van, van), unravel_like(grad_flow, flow)),
                     "classical_score": unravel_like(s_c.mean(dim=0), van),
                     "quantum_score": unravel_like(2.0 * qsm[0], flow),
-                    "classical_fisher": cf, "quantum_fisher": qf, "quantum_score_mean": qsm,
+                    **fishers, "quantum_score_mean": qsm,
                 }
         grad_van, classical_score = _grad_pair(classical_lossfn, list(van.parameters()))
         grad_flow, quantum_score = _grad_pair(quantum_lossfn, list(flow.parameters()))
@@ -285,8 +299,17 @@ def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int, pieces=None
             for a, b in zip(dst, src):
                 a.add_(b, alpha=weight)
         if use_sr:
-            for k in FISHER_KEYS:
-                acc[k].add_(contrib[k], alpha=weight)
+            with annotate("sr.fisher"):
+                if fisher_dtype is None:
+                    for k in FISHER_KEYS:
+                        acc[k].add_(contrib[k], alpha=weight)
+                else:
+                    for k in ("classical_fisher", "quantum_fisher"):
+                        if acc[k].dtype != fisher_dtype:
+                            acc[k] = acc[k].to(fisher_dtype)
+                    add_fishers_(acc["classical_fisher"], acc["quantum_fisher"],
+                                 *contrib["scores"], weight)
+                    acc["quantum_score_mean"].add_(contrib["quantum_score_mean"], alpha=weight)
         return acc
 
     def accumulate(van, flow, state_indices, x, generator, acc, v=None):

@@ -640,7 +640,8 @@ def build_trainer(args, out_folder=None) -> Trainer:
     observable_and_lossfn = make_loss(
         log_prob, logpsi, logpsi_grad_laplacian, args.kappa, G, L, args.rs, Vconst, beta)
     accumulate, apply_update = make_accumulate_and_apply(
-        observable_and_lossfn, args.acc_steps, pieces=mesh.window_groups(layout), sr_opt=sr_opt)
+        observable_and_lossfn, args.acc_steps, pieces=mesh.window_groups(layout), sr_opt=sr_opt,
+        fisher_dtype=fisher_dtype(args))
 
     # one stream per rank; this rank's walkers
     generator = torch.Generator(device=device).manual_seed(rank_seed(grid.rank))
@@ -728,6 +729,13 @@ def checkpoint(tr: Trainer, epoch: int):
     fname = ckpt_filename(epoch, tr.path)
     save_data(ckpt, fname)
     print("Save checkpoint file:", fname)
+
+
+def fisher_dtype(args):
+    """The precision the Fisher blocks are formed and summed in: float64
+    for the float64 solve (``--sr_solver host64``), whose damped Cholesky a
+    float32 sum can make indefinite; None (the working precision) else."""
+    return torch.float64 if args.sr and args.sr_solver == "host64" else None
 
 
 def stale_classical(tr: Trainer, epoch: int) -> bool:
@@ -831,7 +839,7 @@ def train(args, out_folder=None) -> dict:
     try:
         for i in range(args.epoch_finished + 1, args.epoch + 1):
             tripwire.snapshot(snapshot_state(tr))
-            acc = init_accumulators(tr.van, tr.flow, sr=args.sr)
+            acc = init_accumulators(tr.van, tr.flow, sr=args.sr, fisher_dtype=fisher_dtype(args))
             accept_sum = 0.0
             seconds = {"sample": 0.0, "accumulate": 0.0, "apply": 0.0}
             for _ in range(args.acc_steps):
