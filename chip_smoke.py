@@ -43,6 +43,14 @@ exit code:
            reserves in its pool, none allocated by a replay;
            ``python3 chip_smoke.py --sample_graph_only`` runs this phase
            alone;
+  accumulate_graph the SR accumulate's graph part (observables, Hutchinson
+           Laplacian, scores) replayed as one CUDA graph against the eager
+           piece on the n 29 and n 57 SR lines: accumulators, generator state
+           and launch counters bit for bit with the probe handed in and
+           drawn, the graph's kernel nodes against the eager part's kernels,
+           the memory it keeps; two gloo ranks on one chunk against one
+           process; ``python3 chip_smoke.py --accumulate_graph_only`` runs
+           this phase alone;
   train_default main.py's default command line (no --hutchinson: the exact
            Laplacian of log|det J|) for two Adam epochs at the same width,
            with its launch counters, seconds by phase and peak memory;
@@ -105,6 +113,7 @@ work.  The last line is
 
 from __future__ import annotations
 
+import difflib
 import json
 import math
 import os
@@ -1306,6 +1315,203 @@ def phase_sample_graph(steps: int = 4):
           "counters": dict(sample_graph)})
 
 
+def phase_accumulate_graph(rounds: int = 3):
+    """The SR accumulate's graph part (observables, Hutchinson Laplacian,
+    scores) replayed as one CUDA graph against the same piece run eagerly,
+    on main.py's --sr --hutchinson line (n 29, B 2048) and the n 57
+    production line (B 512, --sr_solver host64): ``rounds`` accumulates of
+    one sample step's walkers, the probe handed in and then drawn from a
+    generator set back to one state before each, graphed (one capture, then
+    replays) and by an eager twin (the loss without the graph-safe mark) on
+    the capture's cuSOLVER backend: the accumulators and the generator's
+    state bit for bit, the launch counters alike; the graph's kernel nodes
+    against the kernels of the eager graph part (profiled); the eager twin
+    on the default backend beside them (the largest relative gap of an
+    accumulator); the memory the graph keeps; a round's wall time each way.
+    Then two gloo ranks on the card holding one chunk of the n 29 line
+    (shares of 1024, the clip window reduced eagerly between replays)
+    against one process."""
+    import tempfile
+
+    import main_torch
+    from coulombgas_tpu_torch.io.checkpoint import save_data, to_host
+    from coulombgas_tpu_torch.io.convert import flatten_tree, flow_to_numpy, van_to_numpy
+    from coulombgas_tpu_torch.optim.sr import quantum_score_mean
+    from coulombgas_tpu_torch.train.train import (
+        _capturable_linalg, accumulate_graph, init_accumulators, make_accumulate_and_apply,
+    )
+
+    def unmarked(loss):
+        def twin(*a, **k):
+            return loss(*a, **k)
+        twin.observables, twin.clip_window = loss.observables, loss.clip_window
+        return twin
+
+    def kernels(prof):
+        return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(("Memcpy", "Memset")) and "spin_kernel" not in e.name]
+
+    def core_seq(names):
+        """Kernel names without template arguments or parameters."""
+        return (re.sub(r"^void ", "", n).split("<")[0].split("(")[0] for n in names)
+
+    def demangled(symbols):
+        try:
+            return subprocess.run(["c++filt"], input="\n".join(symbols), capture_output=True,
+                                  text=True, check=True).stdout.splitlines()
+        except (OSError, subprocess.SubprocessError):
+            return symbols
+
+    def gaps(a, b):
+        """Relative gap of each accumulator, its leaves taken together."""
+        groups = {}
+        for k in b:
+            parts = k.split(".")
+            groups.setdefault(".".join(parts[:2]) if parts[0] in ("data", "grads") else parts[0],
+                              []).append(k)
+        return {g: _rel(np.concatenate([np.ravel(a[k]) for k in ks]),
+                        np.concatenate([np.ravel(b[k]) for k in ks])) for g, ks in groups.items()}
+
+    lines = {"n29": ["--folder", "data/interacting/", "--sr", "--hutchinson"],
+             "n57": ["--n", str(N57), "--rs", "1.0", "--Emax", str(EMAX57), "--batch",
+                     str(BATCH57), "--sr", "--hutchinson", "--sr_solver", "host64",
+                     "--folder", "data/interacting_n57/"]}
+    report = {}
+    for name, argv in lines.items():
+        with tempfile.TemporaryDirectory() as out:
+            args = main_torch.parse_args(argv)
+            tr = main_torch.build_trainer(args, out_folder=out)
+        check(main_torch.accumulate_graph_blocker(tr.loss, tr.sr_opt, DEV) == "",
+              "%s: the SR accumulate would not be graphed" % name)
+        for _ in range(3):  # walkers off the uniform start
+            si, tr.x, _ = tr.sample_step(tr.van, tr.flow, tr.x, tr.generator)
+        x, B = tr.x, args.batch
+        fd = main_torch.fisher_dtype(args)
+        graphed, _ = make_accumulate_and_apply(tr.loss, 1, sr_opt=tr.sr_opt, fisher_dtype=fd)
+        eager, _ = make_accumulate_and_apply(unmarked(tr.loss), 1, sr_opt=tr.sr_opt,
+                                             fisher_dtype=fd)
+        gen = torch.Generator(DEV).manual_seed(5)
+        s0 = gen.get_state()
+        v = torch.randn(x.shape, generator=torch.Generator(DEV).manual_seed(6), device=DEV)
+
+        def run(fn, probe):
+            reset_counts()
+            accs, ends = [], []
+            for _ in range(rounds):
+                gen.set_state(s0)
+                acc = init_accumulators(tr.van, tr.flow, sr=True, fisher_dtype=fd)
+                accs.append(to_host(fn(tr.van, tr.flow, si, x, gen, acc, probe)))
+                ends.append(gen.get_state())
+            torch.cuda.synchronize()
+            return [flatten_tree(a) for a in accs], ends, read_counts()
+
+        case = {}
+        for probe_name, probe in (("handed_in", v), ("drawn", None)):
+            before = dict(accumulate_graph)
+            accs_g, ends_g, counts_g = run(graphed, probe)
+            moved = {k: accumulate_graph[k] - before[k] for k in before}
+            check(moved == {"captures": 1, "replays": rounds - 1, "eager": 0},
+                  "%s, probe %s: accumulate_graph moved %s" % (name, probe_name, moved))
+            with _capturable_linalg():
+                accs_e, ends_e, counts_e = run(eager, probe)
+            accs_d, _, _ = run(eager, probe)  # the default backend
+            keys = sorted(accs_e[0])
+            same = all(np.array_equal(a[k], accs_e[0][k]) for a in accs_g + accs_e for k in keys)
+            check(same and all(torch.equal(e, ends_e[0]) for e in ends_g + ends_e),
+                  "%s, probe %s: graphed and eager accumulates differ" % (name, probe_name))
+            check(counts_g == counts_e and counts_g["chol_logdet"] > 0,
+                  "%s, probe %s: launch counters graphed %s, eager %s"
+                  % (name, probe_name, counts_g, counts_e))
+            case[probe_name] = {"default_backend_rel_gaps": gaps(accs_e[0], accs_d[0]),
+                                "launches": counts_g}
+
+        # the graph's kernel nodes against the eager graph part's kernels
+        graph = graphed.graphs[B]["graph"]
+        nodes = demangled(counters.graph_kernels(graph))
+        with _capturable_linalg(), torch.no_grad():
+            tr.loss.observables(tr.van, tr.flow, si, x, gen, None)  # warm
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                # a fence the count leaves out: the trace may miss the first
+                # kernel after the profiler starts
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                tr.loss.observables(tr.van, tr.flow, si, x, gen, None)
+                s_c, s_q = tr.sr_opt.scores(tr.van, tr.flow, si, x)
+                s_c.mean(dim=0), quantum_score_mean(s_q)
+                torch.cuda.synchronize()
+        eager_kernels = kernels(prof)
+        if len(nodes) != len(eager_kernels):
+            a, b = (list(core_seq(n)) for n in (nodes, eager_kernels))
+            ops = [(tag, i1, i2, j1, j2) for tag, i1, i2, j1, j2
+                   in difflib.SequenceMatcher(None, a, b, autojunk=False).get_opcodes()
+                   if tag != "equal"]
+            emit({"phase": "accumulate_graph", "line": name, "graph_against_eager": [
+                {"op": tag, "graph": a[max(i1 - 3, 0):i2 + 3], "eager": b[max(j1 - 3, 0):j2 + 3],
+                 "at": [i1, j1]} for tag, i1, i2, j1, j2 in ops[:5]]})
+        check(len(nodes) == len(eager_kernels),
+              "%s: the graph holds %d kernels, the eager graph part runs %d"
+              % (name, len(nodes), len(eager_kernels)))
+
+        # memory: what the graph keeps allocated and reserves; a replay allocates nothing
+        def held():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+        graphed.graphs.clear()
+        acc = init_accumulators(tr.van, tr.flow, sr=True, fisher_dtype=fd)
+        eager(tr.van, tr.flow, si, x, gen, acc, v)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        at = torch.cuda.memory_allocated()
+        eager(tr.van, tr.flow, si, x, gen, acc, v)
+        torch.cuda.synchronize()
+        eager_peak = torch.cuda.max_memory_allocated() - at
+        base = held()
+        graphed(tr.van, tr.flow, si, x, gen, acc, v)  # the capture
+        after_capture = held()
+        for _ in range(3):
+            graphed(tr.van, tr.flow, si, x, gen, acc, v)
+        after_replays = held()
+        check(after_replays[0] <= after_capture[0] and after_replays[1] == after_capture[1],
+              "%s: replays allocated: %s after the capture, %s after 3 replays"
+              % (name, after_capture, after_replays))
+        walls = {"eager": [], "graphed": []}
+        for which in ("eager", "graphed", "graphed", "eager", "eager", "graphed"):
+            fn = graphed if which == "graphed" else eager
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fn(tr.van, tr.flow, si, x, gen, acc, v)
+            torch.cuda.synchronize()
+            walls[which].append(round(1e3 * (time.time() - t0), 2))
+        report[name] = dict(case, graph_kernels=len(nodes), eager_kernels=len(eager_kernels),
+                            eager_round_peak_bytes=eager_peak,
+                            graph_allocated_bytes=after_capture[0] - base[0],
+                            graph_reserved_bytes=after_capture[1] - base[1], round_wall_ms=walls)
+        emit(dict({"phase": "accumulate_graph", "line": name, "batch": B}, **report[name]))
+        if name == "n29":
+            shared = (tr, si, v, argv)
+        del tr, graphed, eager, graph
+
+    # two gloo ranks on the card, one chunk of 2048 across both: the clip
+    # window's means reduced eagerly between the replays of each rank's graph
+    tr, si, v, argv = shared
+    names = ([k for k, _ in tr.van.named_parameters()], [k for k, _ in tr.flow.named_parameters()])
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "walkers.pkl")
+        save_data({"x": tr.x.cpu().numpy(), "params_van": van_to_numpy(tr.van),
+                   "params_flow": flow_to_numpy(tr.flow)}, ckpt)
+        out = _shared_batch_step(tmp, "accumulate_graph", argv + ["--sr_solver", "host64"], ckpt,
+                                 si.cpu().numpy(), v.cpu().numpy(), names, rounds=2,
+                                 params=False)
+    want = {"captures": 1, "replays": 1, "eager": 0}
+    check(out["accumulate_graph"] == {"ranks": want, "one_process": want},
+          "two ranks: accumulate_graph moved %s" % out["accumulate_graph"])
+    emit(dict({"phase": "accumulate_graph", "case": "two_gloo_ranks_one_chunk"}, **out))
+    emit({"phase": "accumulate_graph", "counters": dict(accumulate_graph)})
+
+
 def phase_train_default():
     """main.py's default command line through main_torch.py's functions: Adam
     and the exact Laplacian (no --hutchinson) at the default width."""
@@ -1791,15 +1997,20 @@ def _rows(folder):
         return runs[0], f.read().splitlines()
 
 
-def dist_step(argv, ckpt, si, v, out_folder):
+def dist_step(argv, ckpt, si, v, out_folder, rounds: int = 1):
     """One accumulate and apply of main_torch.py with ``argv`` on this
     rank's share of the global batch: the walkers and parameters of the
-    checkpoint ``ckpt``, the occupations ``si`` and Hutchinson probe ``v``."""
+    checkpoint ``ckpt``, the occupations ``si`` and Hutchinson probe ``v``.
+    With ``rounds`` > 1 the accumulate runs that often on fresh accumulators
+    (on the SR route the first captures its graph part, the next replay it),
+    and the last is reduced and applied."""
     import main_torch
     from coulombgas_tpu_torch.io.checkpoint import to_host
     from coulombgas_tpu_torch.io.convert import flow_to_numpy, van_to_numpy
     from coulombgas_tpu_torch.parallel import mesh
-    from coulombgas_tpu_torch.train.train import init_accumulators, reduce_accumulators
+    from coulombgas_tpu_torch.train.train import (
+        accumulate_graph, init_accumulators, reduce_accumulators,
+    )
 
     args = main_torch.parse_args(argv)
     tr = main_torch.build_trainer(args, out_folder)
@@ -1809,12 +2020,15 @@ def dist_step(argv, ckpt, si, v, out_folder):
     # the checkpoint's first len(si) walkers are the global batch
     x, si, v = (torch.as_tensor(mesh.shard_batch(a)).to(tr.device)
                 for a in (state["x"][:len(si)], si, v))
-    acc = tr.accumulate(tr.van, tr.flow, si.long(), x.to(torch.float32), None,
-                        init_accumulators(tr.van, tr.flow, sr=args.sr), v=v.to(torch.float32))
+    before = dict(accumulate_graph)
+    for _ in range(rounds):
+        acc = tr.accumulate(tr.van, tr.flow, si.long(), x.to(torch.float32), None,
+                            init_accumulators(tr.van, tr.flow, sr=args.sr), v=v.to(torch.float32))
     acc, _ = reduce_accumulators(acc)
     reduced = to_host(acc)
     d, _ = main_torch.apply_step(tr, acc, 1, {})
-    return {"d": d, "acc": reduced, "van": van_to_numpy(tr.van), "flow": flow_to_numpy(tr.flow)}
+    return {"d": d, "acc": reduced, "van": van_to_numpy(tr.van), "flow": flow_to_numpy(tr.flow),
+            "accumulate_graph": {k: accumulate_graph[k] - before[k] for k in before}}
 
 
 def dist_rank_main(rank: int, world: int, port: int, job: str):
@@ -1829,7 +2043,8 @@ def dist_rank_main(rank: int, world: int, port: int, job: str):
     grid = mesh.make_mesh("tcp://localhost:%d" % port, rank, world,
                           torch.device("cuda", rank % torch.cuda.device_count()))
     try:
-        res = dist_step(spec["argv"], spec["ckpt"], spec["si"], spec["v"], spec["out"])
+        res = dist_step(spec["argv"], spec["ckpt"], spec["si"], spec["v"], spec["out"],
+                        spec.get("rounds", 1))
     finally:
         mesh.destroy()
     res["backend"] = grid.backend
@@ -1899,20 +2114,24 @@ def _free_slurm_job() -> int:
     raise RuntimeError("no free port in 61440-65535")
 
 
-def _shared_batch_step(tmp, name, argv, ckpt, si, v, names):
+def _shared_batch_step(tmp, name, argv, ckpt, si, v, names, rounds: int = 1,
+                       params: bool = True):
     """(c)'s check for ``argv``: one accumulate and apply on one shared
-    global batch in two ranks against one process; returns the comparison
-    and the seconds of both."""
+    global batch in two ranks against one process (``rounds`` as
+    ``dist_step`` takes it); returns the comparison and the seconds of both.
+    Without ``params`` the parameters after the apply are reported, not held
+    to ``TOL_DIST_PARAM`` (an SR step is a solve that magnifies the
+    accumulators' rounding)."""
     import pickle
 
     import main_torch
 
     t0 = time.time()
-    one = dist_step(argv, ckpt, si, v, os.path.join(tmp, name + "_one"))
+    one = dist_step(argv, ckpt, si, v, os.path.join(tmp, name + "_one"), rounds)
     seconds = {"one_process_step": time.time() - t0}
     job = os.path.join(tmp, name + "_job.pkl")
     with open(job, "wb") as f:
-        pickle.dump({"argv": argv, "ckpt": ckpt, "si": si, "v": v,
+        pickle.dump({"argv": argv, "ckpt": ckpt, "si": si, "v": v, "rounds": rounds,
                      "out": os.path.join(tmp, name + "_ranks")}, f)
     port = main_torch.free_port()
     rcs, outs, seconds["two_rank_step"] = _run_all([
@@ -1923,13 +2142,16 @@ def _shared_batch_step(tmp, name, argv, ckpt, si, v, names):
         ranks = pickle.load(f)
     out = compare_dist_step(ranks, one, names)
     out["backend"], out["seconds"] = ranks["backend"], seconds
+    out["accumulate_graph"] = {"ranks": ranks["accumulate_graph"],
+                               "one_process": one["accumulate_graph"]}
     obs, acc = out["observables_max_rel_err"], out["accumulators_rel_err"]
     param = out["params_max_abs_err_where_gradient_determined"]
     check(obs <= TOL_DIST_OBS, "dist %s: observables differ by %g" % (name, obs))
     check(max(acc.values()) <= TOL_DIST_ACC, "dist %s: accumulators differ: %s" % (name, acc))
-    check(param <= TOL_DIST_PARAM, "dist %s: parameters differ by %g" % (name, param))
+    check(param <= TOL_DIST_PARAM or not params,
+          "dist %s: parameters differ by %g" % (name, param))
     undetermined, entries = out["params_undetermined"]
-    check(undetermined <= TOL_DIST_UNDETERMINED * entries,
+    check(undetermined <= TOL_DIST_UNDETERMINED * entries or not params,
           "dist %s: the gradient is undetermined in %d of %d entries"
           % (name, undetermined, entries))
     return out
@@ -2100,6 +2322,12 @@ def main():
         phase_sample_graph()
         print(smi, flush=True)
         return
+    if sys.argv[1:] == ["--accumulate_graph_only"]:
+        # the SR accumulate's CUDA graph alone
+        smi = phase_device()
+        phase_accumulate_graph()
+        print(smi, flush=True)
+        return
     if sys.argv[1:] == ["--dist_only"]:
         # the dist phase alone, for a machine with several cards
         smi = phase_device()
@@ -2112,6 +2340,7 @@ def main():
     rows = phase_kernels()
     counts = phase_train()
     phase_sample_graph()
+    phase_accumulate_graph()
     counts_default, tr_default = phase_train_default()
     counts_engines = phase_engines(tr_default)
     del tr_default

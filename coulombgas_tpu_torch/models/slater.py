@@ -27,6 +27,36 @@ def planewave_matrix(k, x, L):
     return L ** (-dim / 2) * phase.to(complex_dtype(x.dtype))
 
 
+class _SlogdetInTransforms(torch.autograd.Function):
+    """``torch.linalg.slogdet`` of complex matrices with PyTorch's own
+    derivative as PyTorch takes it inside ``torch.func`` transforms (the
+    per-sample scores' ``vmap(jacrev(...))``): A^-H applied by a solve of
+    A^H, the same ops in the same order, so the same numbers.  PyTorch's
+    ``linalg.solve`` there reads its singular-matrix flag back to the host,
+    which a CUDA graph cannot hold; ``solve_ex`` does not.  On the SR route
+    the analytic Laplacian engine refuses a singular Slater matrix of the
+    same walkers on the device (``fast_laplacian.SINGULAR``)."""
+
+    @staticmethod
+    def forward(A):
+        return torch.linalg.slogdet(A)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output[0])
+
+    @staticmethod
+    def backward(ctx, grad_sign, grad_logabsdet):
+        A, sign = ctx.saved_tensors
+        g = grad_logabsdet - 1j * torch.imag(grad_sign.conj() * sign)
+        d = torch.diag_embed(g.unsqueeze(-1).expand(*g.shape, A.shape[-1])).mT
+        return torch.linalg.solve_ex(A.mH, d)[0]
+
+    @staticmethod
+    def vmap(info, in_dims, A):
+        return _SlogdetInTransforms.apply(A.movedim(in_dims[0], 0)), (0, 0)
+
+
 def logslaterdet(indices, x, L):
     """log det of the plane-wave Slater matrix as a real pair.
 
@@ -35,7 +65,10 @@ def logslaterdet(indices, x, L):
     OUTPUT: (..., 2) = [log|det D|, arg(det D)].
     """
     D = planewave_matrix(2 * torch.pi / L * indices, x, L)
-    sign, logabsdet = torch.linalg.slogdet(D)
+    if torch._C._functorch.is_functorch_wrapped_tensor(D):
+        sign, logabsdet = _SlogdetInTransforms.apply(D)
+    else:
+        sign, logabsdet = torch.linalg.slogdet(D)
     return torch.stack([logabsdet, torch.angle(sign)], dim=-1)
 
 

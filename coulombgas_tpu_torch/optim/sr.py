@@ -29,8 +29,8 @@ import torch
 from ..ops import counters
 from ..utils.profiling import annotate
 
-__all__ = ["fisher_sr", "hybrid_fisher_sr", "fishers_from_scores", "add_fishers_",
-           "quantum_score_mean", "FisherSR", "HybridFisherSR"]
+__all__ = ["fisher_sr", "hybrid_fisher_sr", "fishers_from_scores", "fisher_blocks",
+           "add_fishers_", "quantum_score_mean", "FisherSR", "HybridFisherSR"]
 
 
 def _solve_scaled(fisher, grads_raveled, damping, max_norm, refine: int = 0,
@@ -146,12 +146,19 @@ def fishers_from_scores(classical_score, quantum_score):
     """(S_c (B, P_c), S_q (B, P_q) complex) -> the hybrid-SR Fisher payload
     (classical_fisher, quantum_fisher, quantum_score_mean).  The mean is
     stacked as a real (2, P) tensor [Re, Im], the accumulators' layout."""
+    return (*fisher_blocks(classical_score, quantum_score),
+            quantum_score_mean(quantum_score))
+
+
+def fisher_blocks(classical_score, quantum_score):
+    """The two Fisher blocks of ``fishers_from_scores``, in the scores'
+    precision: (S_c^T S_c / B, Re(S_q^H S_q) / B)."""
     batch = classical_score.shape[0]
     classical_fisher = classical_score.T @ classical_score / batch
     # Re(S^H S) = Sr^T Sr + Si^T Si
     sr_, si_ = quantum_score.real, quantum_score.imag
     quantum_fisher = (sr_.T @ sr_ + si_.T @ si_) / batch
-    return classical_fisher, quantum_fisher, quantum_score_mean(quantum_score)
+    return classical_fisher, quantum_fisher
 
 
 def quantum_score_mean(quantum_score):

@@ -46,6 +46,13 @@ def madelung(dim: int, kappa, G) -> float:
     return float(g_k.sum() + g_0 - 2 * kappa / math.sqrt(math.pi))
 
 
+def _mesh(G, x):
+    """The mesh G as a tensor of x's dtype on x's device."""
+    if not isinstance(G, torch.Tensor):
+        G = np.asarray(G)
+    return torch.as_tensor(G, dtype=x.dtype, device=x.device)
+
+
 def ewald_sum(x, kappa, G):
     """Coordinate-dependent electrostatic energy for a unit periodic box.
 
@@ -54,11 +61,12 @@ def ewald_sum(x, kappa, G):
     reciprocal sum uses the structure factor S(G) = sum_i e^{2 pi i G.u_i}:
     sum_{i<j} cos(2 pi G . r_ij) = (|S(G)|^2 - n) / 2, exact for integer G.
 
-    INPUT: x (..., n, dim) in the unit box; G (NG, dim) integer mesh.
+    INPUT: x (..., n, dim) in the unit box; G (NG, dim) integer mesh, host
+    (numpy) or a tensor of x's dtype on x's device (used as it is: no copy).
     OUTPUT: (...,).
     """
     n, dim = x.shape[-2:]
-    G = torch.as_tensor(np.asarray(G), dtype=x.dtype, device=x.device)
+    G = _mesh(G, x)
 
     rij = x[..., :, None, :] - x[..., None, :, :]
     rij = rij - torch.round(rij)
@@ -86,7 +94,7 @@ def ewald_sum_pairs(x, kappa, G):
     number as ``ewald_sum`` (the differential-test oracle of the structure
     factor), batched the same way: x (..., n, dim) -> (...,)."""
     n, dim = x.shape[-2:]
-    G = torch.as_tensor(np.asarray(G), dtype=x.dtype, device=x.device)
+    G = _mesh(G, x)
     rij = x[..., :, None, :] - x[..., None, :, :]
     rij = rij - torch.round(rij)
     iu = torch.triu(torch.ones(n, n, dtype=torch.bool, device=x.device), diagonal=1)
@@ -107,6 +115,7 @@ def potential_energy(x, kappa, G, L, rs):
     """Batched potential energy in Ry/rs^2 for a box of size L.
 
     Only the coordinate-dependent part; add ``n*rs/L * madelung(dim, kappa, G)``
-    for the constant piece.  x (batch, n, dim) -> (batch,).
+    for the constant piece.  x (batch, n, dim) -> (batch,); G as ``ewald_sum``
+    takes it.
     """
     return 2 * rs / L * ewald_sum(x / L, kappa, G)

@@ -6,6 +6,7 @@ and the quantum flow.  Counterpart of ``coulombgas_tpu/train/loss.py``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..parallel import mesh
@@ -40,15 +41,28 @@ def make_loss(log_prob, logpsi, logpsi_grad_laplacian, kappa, G, L, rs, Vconst, 
     differentiable in the parameters of ``van`` resp. ``flow``; the clipped
     weights in ``aux`` ("Floc_clipped" (B,) real, "Eloc_clipped" (B,)
     complex) enter them as constants.
-    """
 
-    def observable_and_lossfn(van, flow, state_indices, x, generator=None, v=None, group=None):
+    It is the composition of its two parts, which it carries as attributes
+    for the SR accumulate (``train.train``), the same ops in the same order:
+    ``.observables(van, flow, state_indices, x, generator=None, v=None) ->
+    (observables dict, Floc (B,), Eloc (B,) complex)``, which reads nothing
+    of the other walkers of its chunk, and ``.clip_window(observables, Floc,
+    Eloc, group=None) -> (Floc_clipped, Eloc_clipped)``.  ``.graph_safe`` is
+    the derivative engine's mark (``make_logpsi_grad_laplacian_analytic``):
+    whether ``observables`` may be captured in a CUDA graph.
+    """
+    meshes = {}  # the Ewald mesh G once per device and dtype: no host copy a call
+
+    def observables(van, flow, state_indices, x, generator=None, v=None):
         with torch.no_grad():
+            if (x.device, x.dtype) not in meshes:
+                meshes[x.device, x.dtype] = torch.as_tensor(
+                    np.asarray(G), dtype=x.dtype, device=x.device)
             logp_states = log_prob(van, state_indices)
             grad, laplacian = logpsi_grad_laplacian(x, flow, state_indices, generator, v)
 
             kinetic = -laplacian - (grad**2).sum(dim=(-2, -1))
-            potential = potential_energy(x, kappa, G, L, rs) + Vconst
+            potential = potential_energy(x, kappa, meshes[x.device, x.dtype], L, rs) + Vconst
             Eloc = kinetic + potential
             Floc = logp_states / beta + Eloc.real
 
@@ -64,22 +78,31 @@ def make_loss(log_prob, logpsi, logpsi_grad_laplacian, kappa, G, L, rs, Vconst, 
                 "S_mean": -logp_states.mean(),
                 "S2_mean": (logp_states**2).mean(),
             }
-            F_mean, E_mean = observable["F_mean"], observable["E_mean"]
-            count = Floc.shape[0]
-            if group is not None:  # two reductions, one after the other
-                F_mean, E_mean = mesh.window_mean([F_mean, E_mean], group, count)
-            tvF = (Floc - F_mean).abs().mean()
-            tvE = (Eloc - E_mean).abs().mean()
-            if group is not None:
-                tvF, tvE = mesh.window_mean([tvF, tvE], group, count)
+        return observable, Floc, Eloc
 
-            Floc_clipped = torch.clamp(
-                Floc, F_mean - clip_factor * tvF, F_mean + clip_factor * tvF)
-            # clip the real part and carry the imaginary part unchanged
-            Eloc_clipped = torch.complex(
-                torch.clamp(Eloc.real, E_mean - clip_factor * tvE, E_mean + clip_factor * tvE),
-                Eloc.imag)
-            aux = {"Floc_clipped": Floc_clipped, "Eloc_clipped": Eloc_clipped}
+    @torch.no_grad()
+    def clip_window(observable, Floc, Eloc, group=None):
+        F_mean, E_mean = observable["F_mean"], observable["E_mean"]
+        count = Floc.shape[0]
+        if group is not None:  # two reductions, one after the other
+            F_mean, E_mean = mesh.window_mean([F_mean, E_mean], group, count)
+        tvF = (Floc - F_mean).abs().mean()
+        tvE = (Eloc - E_mean).abs().mean()
+        if group is not None:
+            tvF, tvE = mesh.window_mean([tvF, tvE], group, count)
+
+        Floc_clipped = torch.clamp(
+            Floc, F_mean - clip_factor * tvF, F_mean + clip_factor * tvF)
+        # clip the real part and carry the imaginary part unchanged
+        Eloc_clipped = torch.complex(
+            torch.clamp(Eloc.real, E_mean - clip_factor * tvE, E_mean + clip_factor * tvE),
+            Eloc.imag)
+        return Floc_clipped, Eloc_clipped
+
+    def observable_and_lossfn(van, flow, state_indices, x, generator=None, v=None, group=None):
+        observable, Floc, Eloc = observables(van, flow, state_indices, x, generator, v)
+        Floc_clipped, Eloc_clipped = clip_window(observable, Floc, Eloc, group)
+        aux = {"Floc_clipped": Floc_clipped, "Eloc_clipped": Eloc_clipped}
 
         def classical_lossfn():
             logp = log_prob(van, state_indices)
@@ -95,4 +118,7 @@ def make_loss(log_prob, logpsi, logpsi_grad_laplacian, kappa, G, L, rs, Vconst, 
 
         return observable, classical_lossfn, quantum_lossfn, aux
 
+    observable_and_lossfn.observables = observables
+    observable_and_lossfn.clip_window = clip_window
+    observable_and_lossfn.graph_safe = getattr(logpsi_grad_laplacian, "graph_safe", False)
     return observable_and_lossfn

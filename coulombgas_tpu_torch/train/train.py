@@ -13,19 +13,21 @@ Counterpart of ``coulombgas_tpu/train/train.py``:
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..io.convert import ravel_params, unravel_like
 from ..ops import counters
-from ..optim.sr import HybridFisherSR, add_fishers_, fishers_from_scores, quantum_score_mean
+from ..optim.sr import HybridFisherSR, add_fishers_, fisher_blocks, quantum_score_mean
 from ..parallel import mesh
 from ..sampling.mcmc import mcmc
 from ..utils.profiling import annotate
 
 __all__ = ["make_sample_step", "sample_graph", "sample_graph_blocker", "graph_key",
-           "make_accumulate_and_apply", "init_accumulators",
-           "apply_raveled_update", "chunk_layout", "reduce_accumulators",
-           "DATA_KEYS", "FISHER_KEYS"]
+           "make_accumulate_and_apply", "accumulate_graph", "accumulate_graph_blocker",
+           "accumulate_graph_key", "init_accumulators", "apply_raveled_update", "chunk_layout",
+           "reduce_accumulators", "DATA_KEYS", "FISHER_KEYS"]
 
 DATA_KEYS = ("F_mean", "F2_mean", "E_mean", "E2_mean", "K_mean",
              "K2_mean", "V_mean", "V2_mean", "S_mean", "S2_mean")
@@ -51,6 +53,74 @@ def sample_graph_blocker(logp, device) -> str:
     return ""
 
 
+# How this process's accumulate pieces ran: the SR piece's graph part (all
+# that reads no clip window) captured as a CUDA graph, its replays, and pieces
+# run eagerly where a graph is not safe (``accumulate_graph_blocker``).
+accumulate_graph = {"captures": 0, "replays": 0, "eager": 0}
+
+
+def accumulate_graph_blocker(observable_and_lossfn, sr_opt, device) -> str:
+    """Why an accumulate piece of walkers on ``device`` runs eagerly; '' where
+    its graph part replays as one CUDA graph: on CUDA, on the SR route (the
+    Adam route differentiates its loss closures), with a derivative engine
+    that marks itself ``graph_safe`` (``make_loss``'s ``observable_and_lossfn``
+    carries the mark of ``make_logpsi_grad_laplacian_analytic``'s)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "walkers on the %s" % device.type
+    if sr_opt is None:
+        return "no SR: the loss closures are differentiated"
+    if not getattr(observable_and_lossfn, "graph_safe", False):
+        return "the Laplacian engine is not marked graph-safe"
+    return ""
+
+
+_capture_streams = {}  # one capture stream a device: every capture shares its workspace
+
+
+def _capture(fn, inputs, generator):
+    """Capture ``fn(*inputs)`` as one CUDA graph on the device's capture
+    stream, with ``generator`` (where given) registered, so that a replay
+    draws from its state at that moment and advances it as the eager call
+    would (``set_state`` between replays holds).  ``inputs[0]`` is on the
+    device.  Returns (graph, its static outputs, the kernels a replay runs).
+    The capture stream's cuBLAS workspace and the static outputs stay
+    allocated; the graph's pool keeps the call's intermediates."""
+    device = inputs[0].device
+    if device not in _capture_streams:
+        _capture_streams[device] = torch.cuda.Stream(device)
+    side = _capture_streams[device]
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    if generator is not None:
+        graph.register_generator_state(generator)
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        out = fn(*inputs)
+    graph.instantiate()
+    return graph, out, counters.graph_launches(graph)
+
+
+def accumulate_graph_key(van, flow, state_indices, x, generator, v) -> tuple:
+    """What a captured accumulate piece holds for: ``graph_key``'s, the
+    occupations' shape and dtype, and whether the probe is handed in (else
+    the graph draws it from ``generator``)."""
+    return graph_key(van, flow, x, generator) + (tuple(state_indices.shape),
+                                                 state_indices.dtype, v is None)
+
+
+@contextlib.contextmanager
+def _capturable_linalg():
+    """``torch.linalg`` on cuSOLVER and cuBLAS inside the block: the default
+    backend takes MAGMA's batched LU for complex matrices (``inv_ex``,
+    ``slogdet``), which cannot be captured in a CUDA graph."""
+    before = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(before)
+
+
 def graph_key(van, flow, x, generator) -> tuple:
     """What a captured sample step holds for: the walkers' shape, dtype and
     device, the generator, and the storage of every parameter, which the
@@ -72,14 +142,10 @@ def make_sample_step(sampler, logp, mc_steps: int, mc_stddev, L, batch: int):
     (the VAN's decodes and draws, the Metropolis sweeps, the wrap) is
     captured as one CUDA graph at the first call of a ``graph_key`` and
     replayed at the next ones: the same launches from the same generator
-    state, so the same numbers as the eager step.  The generator is
-    registered with the graph, so a replay draws from its state at that
-    moment and advances it as the eager step would (``set_state`` between
-    replays holds).  A capturing call runs and returns the eager step, which
-    warms up what the capture reads, then captures on a stream of its own;
-    a replay returns copies of the graph's outputs.  The capture stream's
-    cuBLAS workspace and the graph's static walkers and outputs stay
-    allocated; its pool keeps the step's intermediates.
+    state, so the same numbers as the eager step (``_capture``).  A
+    capturing call runs and returns the eager step, which warms up what the
+    capture reads, then captures; a replay returns copies of the graph's
+    outputs.
     """
 
     def step(van, flow, x, generator):
@@ -90,23 +156,14 @@ def make_sample_step(sampler, logp, mc_steps: int, mc_stddev, L, batch: int):
         return state_indices, x, accept_rate
 
     captured = {}  # key, graph, static walkers and outputs, kernels a replay runs
-    streams = {}  # the capture stream a device: every capture shares one workspace
 
     def capture(van, flow, x, generator, key):
         out = step(van, flow, x, generator)
         captured.clear()  # the previous graph and its memory pool go first
         static_x = x.clone()
-        if x.device not in streams:
-            streams[x.device] = torch.cuda.Stream(x.device)
-        side = streams[x.device]
-        side.wait_stream(torch.cuda.current_stream())
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        graph.register_generator_state(generator)
-        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-            static_out = step(van, flow, static_x, generator)
-        graph.instantiate()
-        captured.update(key=key, graph=graph, x=static_x, out=static_out,
-                        launches=counters.graph_launches(graph))
+        graph, static_out, launches = _capture(
+            lambda xx: step(van, flow, xx, generator), (static_x,), generator)
+        captured.update(key=key, graph=graph, x=static_x, out=static_out, launches=launches)
         sample_graph["captures"] += 1
         return out
 
@@ -243,6 +300,22 @@ def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int, pieces=None
     that precision, in place (``optim.sr.add_fishers_``); accumulators made
     in another (``init_accumulators`` without it) are cast at their first
     round.  None: formed and summed in the scores' precision.
+
+    An SR piece is a graph part and an eager tail.  The graph part reads the
+    piece's occupations, walkers and probe (or draws the probe from
+    ``generator``) and gives the observables, the per-walker F and E
+    (``observable_and_lossfn.observables``), the score matrices and their
+    means; the tail reduces the clip window over ``group``
+    (``.clip_window``), contracts the scores with the clipped weights and
+    forms or adds the Fisher blocks.  Where ``accumulate_graph_blocker``
+    finds nothing against it, the graph part is captured as one CUDA graph
+    at the first piece of a key (``accumulate_graph_key``), which runs
+    eagerly, and replayed at the next ones, from static copies of the
+    inputs; pieces of another size get a graph of their own, and a key that
+    changes drops its size's graph first (``accumulate.graphs``).  A
+    replay's outputs are the graph's own, which the tail reads before the
+    next replay.  The graph part's first piece and its capture take
+    ``torch.linalg`` on cuSOLVER (``_capturable_linalg``).
     """
 
     def _grad_pair(lossfn, params):
@@ -254,31 +327,78 @@ def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int, pieces=None
 
     use_sr = sr_opt is not None
 
+    @torch.no_grad()
+    def _observe(van, flow, state_indices, x, generator, v):
+        """An SR piece's graph part: (observables, Floc, Eloc, S_c, S_q, the
+        mean of S_c, the mean of S_q as [Re, Im])."""
+        data, Floc, Eloc = observable_and_lossfn.observables(
+            van, flow, state_indices, x, generator, v)
+        s_c, s_q = sr_opt.scores(van, flow, state_indices, x)
+        return data, Floc, Eloc, s_c, s_q, s_c.mean(dim=0), quantum_score_mean(s_q)
+
+    graphs = {}  # piece size -> key, graph, static inputs and outputs, kernels a replay runs
+
+    def _observe_graphed(van, flow, state_indices, x, generator, v):
+        key = accumulate_graph_key(van, flow, state_indices, x, generator, v)
+        size = x.shape[0]
+        slot = graphs.get(size)
+        if slot is not None and slot["key"] == key:
+            for dst, src in zip(slot["inputs"], (state_indices, x, v)):
+                if src is not None:
+                    dst.copy_(src)
+            slot["graph"].replay()
+            counters.replayed(slot["launches"])
+            accumulate_graph["replays"] += 1
+            return slot["out"]
+        graphs.pop(size, None)  # the old graph and its memory pool go first
+        with _capturable_linalg():
+            out = _observe(van, flow, state_indices, x, generator, v)
+            inputs = tuple(None if t is None else t.clone() for t in (state_indices, x, v))
+            graph, static_out, launches = _capture(
+                lambda si, xx, vv: _observe(van, flow, si, xx, generator, vv), inputs, generator)
+        graphs[size] = dict(key=key, graph=graph, inputs=inputs, out=static_out,
+                            launches=launches)
+        accumulate_graph["captures"] += 1
+        return out
+
+    @torch.no_grad()
+    def _sr_tail(van, flow, observed, group):
+        """An SR piece's eager tail: the clip window, the REINFORCE gradients
+        as contractions of the scores with the clipped weights, the Fisher
+        blocks."""
+        data, Floc, Eloc, s_c, s_q, score_c, qsm = observed
+        Floc_clipped, Ec = observable_and_lossfn.clip_window(data, Floc, Eloc, group)
+        batch = s_c.shape[0]
+        grad_van = s_c.T @ Floc_clipped / batch
+        # 2 Re mean(S_q conj(Eloc)), in real arithmetic
+        grad_flow = 2.0 * (s_q.real.T @ Ec.real + s_q.imag.T @ Ec.imag) / batch
+        if fisher_dtype is None:
+            with annotate("sr.fisher"):
+                cf, qf = fisher_blocks(s_c, s_q)
+            fishers = {"classical_fisher": cf, "quantum_fisher": qf}
+        else:  # their Grams are added into the accumulators (_add)
+            fishers = {"scores": (s_c, s_q)}
+        return {
+            "data": data,
+            "grads": (unravel_like(grad_van, van), unravel_like(grad_flow, flow)),
+            "classical_score": unravel_like(score_c, van),
+            "quantum_score": unravel_like(2.0 * qsm[0], flow),
+            **fishers, "quantum_score_mean": qsm,
+        }
+
     def _one_batch(van, flow, state_indices, x, generator, v, group):
-        data, classical_lossfn, quantum_lossfn, aux = observable_and_lossfn(
-            van, flow, state_indices, x, generator, v, group=group)
+        eager = accumulate_graph_blocker(observable_and_lossfn, sr_opt, x.device)
+        if eager:
+            accumulate_graph["eager"] += 1
         if use_sr:
-            with torch.no_grad():
-                s_c, s_q = sr_opt.scores(van, flow, state_indices, x)
-                batch = s_c.shape[0]
-                grad_van = s_c.T @ aux["Floc_clipped"] / batch
-                # 2 Re mean(S_q conj(Eloc)), in real arithmetic
-                Ec = aux["Eloc_clipped"]
-                grad_flow = 2.0 * (s_q.real.T @ Ec.real + s_q.imag.T @ Ec.imag) / batch
-                if fisher_dtype is None:
-                    with annotate("sr.fisher"):
-                        cf, qf, qsm = fishers_from_scores(s_c, s_q)
-                    fishers = {"classical_fisher": cf, "quantum_fisher": qf}
-                else:  # their Grams are added into the accumulators (_add)
-                    qsm = quantum_score_mean(s_q)
-                    fishers = {"scores": (s_c, s_q)}
-                return {
-                    "data": data,
-                    "grads": (unravel_like(grad_van, van), unravel_like(grad_flow, flow)),
-                    "classical_score": unravel_like(s_c.mean(dim=0), van),
-                    "quantum_score": unravel_like(2.0 * qsm[0], flow),
-                    **fishers, "quantum_score_mean": qsm,
-                }
+            if eager:
+                observed = _observe(van, flow, state_indices, x, generator, v)
+            else:
+                with torch.cuda.device(x.device):
+                    observed = _observe_graphed(van, flow, state_indices, x, generator, v)
+            return _sr_tail(van, flow, observed, group)
+        data, classical_lossfn, quantum_lossfn, _ = observable_and_lossfn(
+            van, flow, state_indices, x, generator, v, group=group)
         grad_van, classical_score = _grad_pair(classical_lossfn, list(van.parameters()))
         grad_flow, quantum_score = _grad_pair(quantum_lossfn, list(flow.parameters()))
         return {
@@ -328,6 +448,8 @@ def make_accumulate_and_apply(observable_and_lossfn, acc_steps: int, pieces=None
                                  None if v is None else v[sl], group)
             _add(acc, contrib, (stop - start) / batch)
         return acc
+
+    accumulate.graphs = graphs
 
     @torch.no_grad()
     def apply_update(van, flow, optimizer, acc, trust_scale=1.0):

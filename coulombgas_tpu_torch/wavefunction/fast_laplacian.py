@@ -28,15 +28,18 @@ at a time.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..config import complex_dtype
 from ..models.slater import planewave_matrix
 from ..ops.logdet import logdet_spd_single
-from .logpsi import columns_per_pass, coordinate_derivatives, draw_probe, flow_jacobian
+from .logpsi import (columns_per_pass, coordinate_derivatives, draw_probe, flow_jacobian,
+                     momenta_table)
 
-__all__ = ["make_logpsi_grad_laplacian_analytic", "flow_laplacian"]
+__all__ = ["make_logpsi_grad_laplacian_analytic", "flow_laplacian", "SINGULAR"]
+
+# linalg.inv's refusal of a singular Slater matrix, kept as a device assert
+SINGULAR = "linalg.inv: a Slater matrix is singular"
 
 
 def flow_laplacian(flow_apply, flow, x):
@@ -89,9 +92,13 @@ def make_logpsi_grad_laplacian_analytic(sp_indices, L, flow_jac_lap=None,
     Returns ``fn(x, flow, state_indices, generator=None, v=None) ->
     (grad (B, n, dim) complex, laplacian (B,) complex)``.  The Hutchinson
     probe ``v`` (B, n, dim) is drawn from ``generator`` on x's device unless
-    handed in.  The results carry no autograd graph.
+    handed in.  The results carry no autograd graph.  ``fn.graph_safe``: on
+    the Hutchinson route with the analytic flow Jacobian (``flow_jac`` or
+    ``flow_jac_lap``) and no batched kernel, every launch is on the current
+    stream and nothing is read back to the host, so the SR accumulate may
+    capture the call in a CUDA graph (``train.train.accumulate_graph_blocker``).
     """
-    sp_indices = np.asarray(sp_indices)
+    table = momenta_table(sp_indices)
     if flow_jac is None and flow_jac_lap is not None:
         flow_jac = lambda flow, x: flow_jac_lap(flow, x)[:2]  # noqa: E731
     if flow_jac is None and flow_apply is None:
@@ -119,14 +126,15 @@ def make_logpsi_grad_laplacian_analytic(sp_indices, L, flow_jac_lap=None,
     def slater_part(x, flow, state_indices):
         B, n, dim = x.shape
         cdtype = complex_dtype(x.dtype)
-        table = torch.as_tensor(sp_indices, dtype=x.dtype, device=x.device)
-        k = 2 * torch.pi / L * table[state_indices]  # (B, n, dim)
+        k = 2 * torch.pi / L * table(x)[state_indices]  # (B, n, dim)
         u, J, lap_u = primal(flow, x)
 
         D = planewave_matrix(k, u, L)
         # LU inverse on purpose: the Gram form squares cond(D) and loses all
-        # f32 digits on near-node walkers.
-        M = torch.linalg.inv(D)
+        # f32 digits on near-node walkers.  linalg.inv's check of a singular
+        # matrix as a device assert: no host read
+        M, info = torch.linalg.inv_ex(D)
+        torch._assert_async((info == 0).all(), SINGULAR)
         kc = k.to(cdtype)
         # E^a = (D * k_{j,a}) M, stacked over a: (B, dim, n, n)
         DK = D[:, None, :, :] * kc.transpose(-1, -2)[:, :, None, :]
@@ -157,4 +165,6 @@ def make_logpsi_grad_laplacian_analytic(sp_indices, L, flow_jac_lap=None,
             lambda q: logjacdet(flow, q), x, forloop, probe=probe)
         return grad_logphi + grad_ljd[:, 0], lap_logphi + lap_ljd[:, 0]
 
+    logpsi_grad_laplacian.graph_safe = (hutchinson and flow_jac is not None
+                                        and flow_jac_lap_batched is None)
     return logpsi_grad_laplacian

@@ -37,6 +37,7 @@ __all__ = [
     "columns_per_pass",
     "draw_probe",
     "flow_jacobian",
+    "momenta_table",
     "to_complex",
 ]
 
@@ -68,8 +69,23 @@ def flow_jacobian(flow_apply, flow, x):
     return flow_apply(flow, x), J
 
 
-def _table(sp_indices, x):
-    return torch.as_tensor(sp_indices, dtype=x.dtype, device=x.device)
+def momenta_table(sp_indices):
+    """``table(x)``: the (M, dim) array ``sp_indices`` as a tensor of x's
+    dtype on x's device, made once per device and dtype, so that a call
+    copies nothing from the host (a CUDA graph may hold it).  It is made
+    outside any ``torch.func`` transform the call sits in (the scores'
+    ``vmap(jacrev(...))``), so the cached tensor is a plain one."""
+    sp_indices = np.asarray(sp_indices)
+    tables = {}
+
+    def table(x):
+        if (x.device, x.dtype) not in tables:
+            with torch._C._DisableFuncTorch():
+                tables[x.device, x.dtype] = torch.as_tensor(sp_indices, dtype=x.dtype,
+                                                            device=x.device)
+        return tables[x.device, x.dtype]
+
+    return table
 
 
 def make_logpsi(flow_apply, sp_indices, L):
@@ -80,11 +96,11 @@ def make_logpsi(flow_apply, sp_indices, L):
     ``flow_apply(flow, x)`` is the normalizing flow; ``sp_indices`` the
     (M, dim) array of twisted momenta indexed by ``state_idx``.
     """
-    sp_indices = np.asarray(sp_indices)
+    table = momenta_table(sp_indices)
 
     def logpsi(x, flow, state_idx):
         z, J = flow_jacobian(flow_apply, flow, x)
-        log_phi = logslaterdet(_table(sp_indices, x)[state_idx], z, L)
+        log_phi = logslaterdet(table(x)[state_idx], z, L)
         logjacdet = torch.linalg.slogdet(J)[1]
         return torch.stack([log_phi[..., 0] + 0.5 * logjacdet, log_phi[..., 1]], dim=-1)
 
@@ -100,11 +116,11 @@ def make_logpsi_fast(flow_jac, sp_indices, L):
     1/2 log|det J| term is 1/4 log det(J J^T) through the pivot-free Cholesky
     with closed-form derivatives (ops/logdet.py).
     """
-    sp_indices = np.asarray(sp_indices)
+    table = momenta_table(sp_indices)
 
     def logpsi(x, flow, state_idx):
         z, J = flow_jac(flow, x)
-        log_phi = logslaterdet(_table(sp_indices, x)[state_idx], z, L)
+        log_phi = logslaterdet(table(x)[state_idx], z, L)
         logjacdet = 0.5 * logdet_spd_single(J @ J.transpose(-1, -2))  # log|det J|
         return torch.stack([log_phi[..., 0] + 0.5 * logjacdet, log_phi[..., 1]], dim=-1)
 
@@ -114,10 +130,10 @@ def make_logpsi_fast(flow_jac, sp_indices, L):
 def make_logphi_logjacdet(flow_apply, sp_indices, L):
     """Split form of ``make_logpsi``: ``logphi(x, flow, state_idx) -> (B, 2)``,
     the Slater term, and ``logjacdet(x, flow) -> (B,)``, 1/2 log|det J|."""
-    sp_indices = np.asarray(sp_indices)
+    table = momenta_table(sp_indices)
 
     def logphi(x, flow, state_idx):
-        return logslaterdet(_table(sp_indices, x)[state_idx], flow_apply(flow, x), L)
+        return logslaterdet(table(x)[state_idx], flow_apply(flow, x), L)
 
     def logjacdet(x, flow):
         return 0.5 * torch.linalg.slogdet(flow_jacobian(flow_apply, flow, x)[1])[1]

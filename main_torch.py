@@ -87,8 +87,8 @@ from coulombgas_tpu_torch.sampling.autoregressive import (
 from coulombgas_tpu_torch.train.loss import make_loss
 from coulombgas_tpu_torch.train.pretrain import pretrain
 from coulombgas_tpu_torch.train.train import (
-    apply_raveled_update, chunk_layout, init_accumulators, make_accumulate_and_apply,
-    make_sample_step, reduce_accumulators, sample_graph_blocker,
+    accumulate_graph_blocker, apply_raveled_update, chunk_layout, init_accumulators,
+    make_accumulate_and_apply, make_sample_step, reduce_accumulators, sample_graph_blocker,
 )
 from coulombgas_tpu_torch.train.tripwire import UpdateTripwire
 from coulombgas_tpu_torch.utils.watchdog import StepWatchdog
@@ -454,6 +454,8 @@ class Trainer:
     x: torch.Tensor                          # this rank's walkers
     path: str
     mesh: mesh.Mesh                          # rank and world size (1 without a group)
+    loss: object = None                      # make_loss's observable_and_lossfn
+    sr_opt: object = None                    # the hybrid SR under --sr
 
     def sync(self):
         if self.device.type == "cuda":
@@ -642,13 +644,15 @@ def build_trainer(args, out_folder=None) -> Trainer:
     accumulate, apply_update = make_accumulate_and_apply(
         observable_and_lossfn, args.acc_steps, pieces=mesh.window_groups(layout), sr_opt=sr_opt,
         fisher_dtype=fisher_dtype(args))
+    why = accumulate_graph_blocker(observable_and_lossfn, sr_opt, device)
+    print("accumulate: %s" % ("eager (%s)" % why if why else "CUDA graph"))
 
     # one stream per rank; this rank's walkers
     generator = torch.Generator(device=device).manual_seed(rank_seed(grid.rank))
     x = L * torch.rand(local_batch, n, dim, generator=generator, dtype=rdtype, device=device)
     return Trainer(args, device, L, sp_indices_twist, van, flow, sampler, logp,
                    sample_step, accumulate, apply_update, optimizer, sr_state, fisher_cache,
-                   generator, x, path, grid)
+                   generator, x, path, grid, observable_and_lossfn, sr_opt)
 
 
 def restore(tr: Trainer) -> bool:
